@@ -1,0 +1,568 @@
+"""MBPO-style model-based controller: the ``learn()`` loop (port of
+``pdecontrol_tpu/mbrl/controller.py``; reference ``mbrl/mbrl.py``,
+PDEModelBasedController).
+
+Loop structure (reference ``learn``, mbrl.py:384-449): warmup with random
+actions (``learning_starts``), then per iteration, in the JAX package's
+unfused phase order:
+
+  1. collect ``num_envs x rollout_length`` real samples;
+  2. every ``surrogate_train_freq`` samples: refit the delta Normalize over
+     the whole replay (mbrl.py:597-602) and
+  3. retrain every ensemble member, one after another, with early stopping
+     on the unscaled free-run val loss, then update the elites;
+  4. imagined rollouts from replay starting states at the scheduled horizon;
+  5. ``policy_train_steps_per_sample x samples`` SAC updates on a uniform
+     mixture of real and imagined transitions (mbrl.py:529-566);
+  6. periodic policy / surrogate evaluation and a status table.
+
+Every phase ends in a device synchronisation before its ``t_*`` timer
+stops, so the per-phase timings in ``metrics.jsonl`` are honest wall times.
+The JAX package's fused iteration and fused fit, its precompile ladder, the
+device mesh, checkpointing, the profiler trace, plots and artifacts, and
+wandb are not ported yet; the options that ask for them raise.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pdecontrol_tpu_torch.data import replay as R
+from pdecontrol_tpu_torch.data.types import Sample
+from pdecontrol_tpu_torch.envs import kuramoto as ks_env
+from pdecontrol_tpu_torch.mbrl.config import MBPOConfig
+from pdecontrol_tpu_torch.mbrl.transform_sets import ControllerTransforms
+from pdecontrol_tpu_torch.mbrl.world import WorldModel
+from pdecontrol_tpu_torch.models import factories
+from pdecontrol_tpu_torch.models.surrogate import (
+    EnsembleState,
+    init_ensemble,
+    update_elites,
+)
+from pdecontrol_tpu_torch.sac.sac import SAC, SACConfig
+from pdecontrol_tpu_torch.train.losses import make_loss
+from pdecontrol_tpu_torch.train.schedulers import Scheduler
+from pdecontrol_tpu_torch.train.trainer import SurrogateTrainer, TrainConfig
+from pdecontrol_tpu_torch.utils import profiling
+from pdecontrol_tpu_torch.utils.logging import MetricsLogger
+
+ENVS = {
+    "KuramotoSivashinskyEnv-v0": (ks_env.KuramotoSivashinsky, ks_env.make_reset_pool),
+}
+
+STATUS_HEADERS = [
+    "iteration", "time", "num_ensemble_updates", "num_pol_updates",
+    "num_steps_sampled", "eval_return_mean", "world_return_mean", "horizon",
+    "world_buffer_samples", "train_loss", "val_loss", "sac_qf_loss",
+    "sac_policy_loss",
+]
+
+# Per-iteration log scalars, pulled to the host in one transfer.
+LOG_SCALARS = ("world_buffer_samples", "collect_reward_mean",
+               "imagined_reward_mean", "sac_qf_loss", "sac_policy_loss",
+               "total_steps")
+
+
+def check_ported(cfg: MBPOConfig) -> None:
+    """Raise for every option that names a feature the port lacks."""
+    todo = []
+    if cfg.env_id not in ENVS:
+        todo.append(f"env {cfg.env_id!r}")
+    if cfg.data_parallel * cfg.model_parallel > 1:
+        todo.append(f"a {cfg.data_parallel}x{cfg.model_parallel} device mesh")
+    if cfg.checkpoint_freq > 0 or cfg.resume:
+        todo.append("checkpointing (--checkpoint_freq > 0 / --resume)")
+    if cfg.profile_dir:
+        todo.append("the profiler trace (--profile_dir)")
+    if cfg.use_wandb:
+        todo.append("wandb logging")
+    if cfg.env_config.get("solver") == "pallas_packed":
+        todo.append("solver 'pallas_packed' (kernel K2)")
+    if cfg.factory not in factories.REGISTRY:
+        todo.append(f"factory {cfg.factory!r}")
+    if cfg.loss != "MSELoss":
+        todo.append(f"loss {cfg.loss!r}")
+    if todo:
+        raise NotImplementedError("not yet ported: " + "; ".join(todo))
+
+
+class PDEModelBasedController:
+    def __init__(self, config: MBPOConfig, logger: Optional[MetricsLogger] = None,
+                 device: Optional[torch.device] = None):
+        check_ported(config)
+        self.config = cfg = config
+        self.device = torch.device(
+            device if device is not None
+            else ("cuda" if torch.cuda.is_available() else "cpu")
+        )
+        dev = self.device
+        torch.manual_seed(cfg.seed)  # module initialisation
+        self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+
+        env_cls, make_pool = ENVS[cfg.env_id]
+        self.env = env_cls.create(**cfg.env_config, device=dev)
+
+        # Runtime accounting (mbrl.py:88-97).
+        self.samples_per_iteration = cfg.num_envs * cfg.rollout_length
+        self.num_pol_updates_per_iteration = int(
+            cfg.policy_train_steps_per_sample * self.samples_per_iteration
+        )
+        self.sur_train_freq = max(
+            int(cfg.surrogate_train_freq / self.samples_per_iteration), 1
+        )
+        self.iteration = 0
+        self.num_ensemble_updates = 0
+        self.num_pol_updates = 0
+
+        self.schedule = Scheduler.factory(cfg.rollout_length_schedule)
+        self.curriculum = Scheduler.factory(cfg.curriculum)
+
+        # Transforms + reset pool.
+        if cfg.world_stride > 1:
+            raise ValueError(
+                "world_stride > 1 is not runnable: the world env recomputes "
+                "rewards through the inverse world sensor, which is undefined "
+                "for strided subsampling (reference SensorTransform._Inverse "
+                "raises NotImplementedError too, transforms.py:240-247)"
+            )
+        self.tr = ControllerTransforms.create(
+            self.env, agent_stride=cfg.agent_stride, world_stride=cfg.world_stride,
+            dtype=self.env.dtype, device=dev,
+        )
+        self.pool = make_pool(self.env, self.gen, cfg.pool_size)
+
+        dummy_obs = torch.zeros((1,) + tuple(self.env.obs_shape),
+                                dtype=self.env.dtype, device=dev)
+        dummy_act = torch.zeros((1,) + tuple(self.env.action_shape),
+                                dtype=self.env.dtype, device=dev)
+        self.world_obs_shape = tuple(self.tr.raw_to_world_obs(dummy_obs).shape[1:])
+        self.agent_obs_shape = tuple(self.tr.raw_to_agent_obs(dummy_obs).shape[1:])
+        self.world_action_shape = tuple(self.tr.env_action_to_world(dummy_act).shape[1:])
+
+        # Surrogate ensemble + per-member trainer states.
+        delta = self.env.delta
+        model_kwargs = {**self.env.scenario, **cfg.model}
+        self.loss_fn = make_loss(cfg.loss, self.env.scenario)
+        self.tau = cfg.training.get("tau", 5)
+        self.ensemble: EnsembleState = init_ensemble(
+            lambda: factories.make(cfg.factory, delta=delta, **model_kwargs),
+            cfg.num_dynamics_models, cfg.num_elite_models, device=dev,
+        )
+        self.train_cfgs = {
+            phase: self._phase_train_config(phase) for phase in ("initial", "iterations")
+        }
+        self.trainer = SurrogateTrainer(self.loss_fn, self.train_cfgs["initial"])
+        self.member_states = [self.trainer.init(m) for m in self.ensemble.members]
+
+        # Replays.
+        ep_len = self.env.max_episode_steps
+        rows = max(cfg.capacity // ep_len, cfg.num_envs + 2)
+        self.replay = R.create(rows, ep_len, cfg.num_envs, self.env.obs_shape,
+                               self.env.action_shape, self.env.dtype, device=dev)
+        h_max = self._max_horizon()
+        w_rows = min(
+            cfg.model_buffer_store_iterations
+            * cfg.model_rollouts_per_sample
+            * self.samples_per_iteration,
+            max(cfg.model_buffer_max_capacity // max(h_max, 1), 1),
+        )
+        w_rows = max(w_rows, cfg.model_rollouts_batch_size + 2)
+        self.world_replay = R.create(
+            w_rows, h_max + 2, cfg.model_rollouts_batch_size,
+            self.world_obs_shape, self.env.action_shape, self.env.dtype, device=dev,
+        )
+
+        # SAC agent.
+        sac_cfg = SACConfig(
+            gamma=cfg.gamma, tau=cfg.sac_tau, alpha=cfg.alpha, lr=cfg.lr,
+            hidden=cfg.hidden_size,
+            target_update_interval=cfg.target_update_interval,
+            automatic_entropy_tuning=cfg.automatic_entropy_tuning,
+            reward_scale=cfg.reward_scale,
+        )
+        self.sac = SAC(self.agent_obs_shape, self.env.action_shape, sac_cfg,
+                       self.env.action_low, self.env.action_high, device=dev)
+        self.sac_state = self.sac.init()
+
+        self.world = WorldModel(cfg.model_rollouts_batch_size,
+                                self.env.max_episode_steps, self.env.reward_fn,
+                                self.tau)
+
+        # Collect env state; the initial reset updates the running obs
+        # scaling (vec_wrappers.py:181-184).
+        self.env_state = self.env.reset_from_pool(self.gen, self.pool, (cfg.num_envs,))
+        self.tr = self.tr.replace(
+            oscaling=self.tr.oscaling.update(self.env.observe(self.env_state))
+        )
+
+        self._start_time = time.time()
+        self.throughput = profiling.Throughput()
+        self.gc_monitor = profiling.GCMonitor()
+        if cfg.logging_freq > 0:
+            print("[controller] plots and evaluation artifacts are not ported "
+                  "yet: logging_freq has no effect", flush=True)
+        self.logger = logger or MetricsLogger(config.run_dir, False, config.project,
+                                              config.name, config.to_dict())
+
+    # ------------------------------------------------------------- plumbing
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _phase_train_config(self, phase: str) -> TrainConfig:
+        cfg = self.config
+        base = {k: v for k, v in cfg.training.items()
+                if k not in ("initial", "iterations")}
+        base.update(cfg.training.get(phase, {}))
+        trainer_base = {k: v for k, v in cfg.trainer.items()
+                        if k not in ("initial", "iterations")}
+        trainer_base.update(cfg.trainer.get(phase, {}))
+        merged = {**base, **trainer_base}
+        return TrainConfig(**{k: v for k, v in merged.items() if k in TrainConfig._fields})
+
+    def _max_horizon(self) -> int:
+        h = 1
+        total_iters = max(
+            int(self.config.total_timesteps / max(self.samples_per_iteration, 1)), 1
+        )
+        for it in (0, total_iters // 2, total_iters):
+            h = max(h, int(self.schedule(iteration=it)))
+        return h
+
+    @property
+    def num_world_rollouts(self) -> int:
+        return int(self.config.model_rollouts_per_sample * self.samples_per_iteration)
+
+    @property
+    def num_steps_sampled(self) -> int:
+        return self.iteration * self.samples_per_iteration
+
+    # ------------------------------------------------------------ collection
+    @torch.no_grad()
+    def collect(self, nsteps: int, random: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (per-step rewards [nsteps, B], their mean)."""
+        env, tr = self.env, self.tr
+        rewards = []
+        for _ in range(nsteps):
+            raw_obs = env.observe(self.env_state)
+            if random:
+                shape = (raw_obs.shape[0],) + env.action_shape
+                u = torch.rand(shape, generator=self.gen, dtype=raw_obs.dtype,
+                               device=self.device)
+                action = env.action_low + u * (env.action_high - env.action_low)
+            else:
+                action = self.sac.select_action(
+                    self.sac_state, tr.raw_to_agent_obs(raw_obs), self.gen)
+            env_action = tr.agent_to_env_action(action)
+            self.env_state, out = env.vec_step(self.env_state, env_action, self.pool)
+            # Update-then-apply ordering: the next step reads obs through the
+            # updated scaling (vec_wrappers.py:157-160); running min/max
+            # updates are idempotent, so the extra finals update is exact.
+            tr = tr.replace(oscaling=tr.oscaling.update(out.obs)
+                            .update(out.info["final_obs"]))
+            R.write_step(self.replay, raw_obs, env_action, out.reward,
+                         out.terminated, out.truncated, out.info["final_obs"],
+                         out.info["step"])
+            rewards.append(out.reward)
+        self.tr = tr
+        rewards = torch.stack(rewards)
+        return rewards, torch.mean(rewards)
+
+    # ------------------------------------------------------ surrogate train
+    @torch.no_grad()
+    def update_delta_transform(self) -> None:
+        """Refit the delta Normalize over the whole replay (mbrl.py:597-602)."""
+        otransf = self.tr.replay_to_world.otransf
+        mean, var = R.delta_statistics(self.replay, otransf, self.env.delta)
+        und = self.tr.undscaling.reset()
+        und = und.replace(
+            mean=und.mean + mean.to(und.mean.dtype),
+            var=und.var + var.to(und.var.dtype),
+            count=und.count + 1,
+        )
+        self.tr = self.tr.replace(undscaling=und)
+
+    def update_surrogates(self) -> Dict[str, float]:
+        cfg = self.config
+        phase = "initial" if self.iteration <= 0 else "iterations"
+        tc = self.train_cfgs[phase]
+        self.trainer.config = tc
+        t_split0 = time.perf_counter()
+
+        # Train/val split over episodes with any data (mbrl.py:570-573).  The
+        # val split must hold at least one window at the fit's starting
+        # length; short in-progress episodes stay in train.
+        fill = self.replay.fill.cpu().numpy()
+        rows = np.where(fill > 0)[0]
+        rng = np.random.default_rng(self.iteration)
+        rng.shuffle(rows)
+        start_step = max(st.global_step for st in self.member_states)
+        length0 = tc.tau + int(self.curriculum(iteration=self.iteration, epoch=0,
+                                               step=start_step))
+        ok = rows[fill[rows] >= length0]
+        short = rows[fill[rows] < length0]
+        if len(ok) == 0:
+            raise ValueError(
+                f"no episode long enough for a length-{length0} window "
+                f"(fills={fill[rows].tolist()})"
+            )
+        if len(ok) == 1:
+            # The single trainable episode serves both splits.
+            val_rows = ok
+            train_rows = np.concatenate([ok, short])
+        else:
+            n_val = max(int(len(rows) * cfg.val_split_ratio), 1)
+            n_val = min(n_val, len(ok) - 1)
+            val_rows = ok[:n_val]
+            train_rows = np.concatenate([ok[n_val:], short])
+        train_np = np.zeros((self.replay.num_rows,), bool)
+        train_np[train_rows] = True
+        val_np = np.zeros((self.replay.num_rows,), bool)
+        val_np[val_rows] = True
+        train_mask = torch.as_tensor(train_np, device=self.device)
+        val_mask = torch.as_tensor(val_np, device=self.device)
+        t_split = time.perf_counter() - t_split0
+
+        t_fit0 = time.perf_counter()
+        self.member_states, scores, logs = self.trainer.fit_ensemble(
+            self.member_states, self.replay, train_mask, val_mask,
+            self.tr.undscaling, self.tr.replay_to_world, self.curriculum,
+            self.iteration, self.gen,
+            min_steps=tc.min_steps, max_steps=tc.max_steps, patience=tc.patience,
+            host_hints={"fill": fill, "train_np": train_np, "val_np": val_np},
+        )
+        logs["t_fit_total"] = round(time.perf_counter() - t_fit0, 4)
+        t_post0 = time.perf_counter()
+        self.ensemble = update_elites(self.ensemble,
+                                      torch.as_tensor(scores, device=self.device))
+        self.num_ensemble_updates += 1
+        scores = [float(s) for s in scores]
+        return {"val_loss": float(np.mean(scores)), **logs,
+                "elite_scores": scores,
+                "t_split": round(t_split, 4),
+                "t_post": round(time.perf_counter() - t_post0, 4)}
+
+    # -------------------------------------------------------- world rollouts
+    @torch.no_grad()
+    def imagine(self, horizon: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Imagined rollouts in batches of ``model_rollouts_batch_size`` from
+        replay starting states; returns (rewards [rounds*horizon, B], mean)."""
+        rounds = max(
+            math.ceil(self.num_world_rollouts / self.config.model_rollouts_batch_size), 1
+        )
+        tr, world, ens = self.tr, self.world, self.ensemble
+        rewards = []
+        for _ in range(rounds):
+            wstate = world.reset(self.gen, ens, self.replay, tr)
+            for _ in range(horizon):
+                prev_obs, prev_t = wstate.obs, wstate.timesteps
+                action = self.sac.select_action(
+                    self.sac_state, tr.world_to_agent_obs(prev_obs), self.gen)
+                wstate, (_, reward, term, trunc, final_obs) = world.step(
+                    self.gen, wstate, ens, action, tr, horizon, self.replay)
+                R.write_step(self.world_replay, prev_obs, action, reward, term,
+                             trunc, final_obs, prev_t + 1)
+                rewards.append(reward)
+        rewards = torch.stack(rewards)
+        return rewards, torch.mean(rewards)
+
+    # --------------------------------------------------------- policy update
+    def update_policy(self) -> Dict[str, torch.Tensor]:
+        n = self.num_pol_updates_per_iteration
+        bs = self.config.policy_batch_size
+        tr = self.tr
+        w_n = self.world_replay.ntimesteps.to(torch.float32)
+        p_imag = w_n / torch.clamp(w_n + self.replay.ntimesteps, min=1)
+        @torch.no_grad()
+        def mixed_batch() -> Sample:
+            real = tr.replay_to_agent(R.sample_transitions(self.replay, self.gen, bs))
+            imag = tr.world_replay_to_agent(
+                R.sample_transitions(self.world_replay, self.gen, bs))
+            pick = torch.rand((bs,), generator=self.gen, device=self.device) < p_imag
+
+            def sel(a, b):
+                return torch.where(pick.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
+
+            batch = Sample(*(sel(a, b) for a, b in zip(imag, real)))
+            return batch.replace(
+                obs=batch.obs.float(), actions=batch.actions.float(),
+                nxtobs=batch.nxtobs.float(), rewards=batch.rewards.float(),
+            )
+
+        # Each batch is drawn just before its update, as in the reference loop.
+        self.sac_state, metrics = self.sac.update_many(
+            self.sac_state, (mixed_batch() for _ in range(n)), self.gen)
+        self.num_pol_updates += n
+        return metrics
+
+    # ------------------------------------------------------------ evaluation
+    @torch.no_grad()
+    def evaluate_policy(self) -> Dict[str, float]:
+        """Deterministic episodes on fresh envs with frozen scaling
+        (mbrl.py:462-465)."""
+        env, tr = self.env, self.tr
+        state = env.reset_from_pool(self.gen, self.pool, (self.config.num_eval_episodes,))
+        rewards = []
+        for _ in range(env.max_episode_steps):
+            obs = tr.raw_to_agent_obs(env.observe(state))
+            action = self.sac.select_action(self.sac_state, obs, self.gen,
+                                            deterministic=True)
+            state, out = env.step(state, tr.agent_to_env_action(action))
+            rewards.append(out.reward)
+        returns = torch.stack(rewards).sum(0)
+        mean, std = torch.stack([returns.mean(), returns.std(correction=0)]).tolist()
+        return {"eval_return_mean": mean, "eval_return_std": std}
+
+    @torch.no_grad()
+    def evaluate_surrogate(self, horizon: Optional[int] = None) -> Dict[str, float]:
+        """Open-loop replay of one logged episode's actions through the world
+        model vs the logged truth (mbrl.py:474-527): a random completed
+        episode, a random start, a tau-step warmup, then the episode's own
+        actions for ``horizon`` steps (``ActionRepeatAgent``).  Scores the
+        MSE in world space and the imagined-vs-true reward L1 error."""
+        horizon = self.config.surrogate_eval_horizon if horizon is None else horizon
+        tau, tr, world = self.tau, self.tr, self.world
+        u = torch.rand((2,), generator=self.gen, device=self.device).cpu().numpy()
+        fill = self.replay.fill.cpu().numpy()
+        complete = self.replay.complete.cpu().numpy()
+        rows = np.where(complete & (fill >= tau + horizon))[0]
+        if len(rows) == 0:
+            return {}
+        row = int(rows[min(int(u[0] * len(rows)), len(rows) - 1)])
+        # Exclusive upper bound as the reference's
+        # np.random.randint(0, length - tau - horizon) (mbrl.py:485).
+        hi = max(int(fill[row]) - tau - horizon, 1)
+        start = min(int(u[1] * hi), hi - 1)
+
+        rp = self.replay
+        idx = start + torch.arange(tau + horizon, device=self.device)
+        sample = Sample(
+            obs=rp.obs_seq[row, idx][None],
+            actions=rp.actions[row, idx][None],
+            nxtobs=rp.obs_seq[row, idx + 1][None],
+            rewards=rp.rewards[row, idx][None],
+            terminated=rp.terminated[row, idx][None],
+            truncated=rp.truncated[row, idx][None],
+            steps=rp.steps[row, idx][None],
+        )
+        wsample = tr.replay_to_world(sample)
+        state = world.reset_from_batch(self.gen, self.ensemble,
+                                       wsample.apply(lambda x: x[:, :tau]), tr)
+        agent_actions = tr.env_action_to_agent(sample.actions)
+        preds, rpred = [], []
+        for t in range(tau, tau + horizon):
+            waction = tr.env_action_to_world(tr.agent_to_env_action(agent_actions[:, t]))
+            # The PRE-advance obs: prediction i is the model's frame tau+i
+            # (mbrl.py:508-517).
+            preds.append(state.obs[0])
+            state, reward = world.advance(self.gen, state, self.ensemble, waction, tr)
+            rpred.append(reward[0])
+        truth = wsample.obs[0, tau:]
+        sq = (torch.stack(preds) - truth) ** 2
+        rtrue = sample.rewards[0, tau:]
+        err, rerr = torch.stack(
+            [torch.mean(sq), torch.mean(torch.abs(torch.stack(rpred) - rtrue))]
+        ).tolist()
+        return {"surrogate_open_loop_mse": err, "reward_model_error": rerr}
+
+    # ------------------------------------------------------------------ main
+    def learn(self) -> None:
+        cfg = self.config
+        self.logger.log({"start": self._start_time}, commit=False)
+
+        # Random warmup (mbrl.py:388-391).
+        t0 = time.perf_counter()
+        warmup_steps = max(cfg.learning_starts // cfg.num_envs, 1)
+        self.collect(warmup_steps, random=True)
+        self._sync()
+        t_warmup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.logger.log(self.evaluate_policy(), commit=False)
+        self.logger.log(
+            {"t_warmup_collect": round(t_warmup, 4),
+             "t_warmup_eval": round(time.perf_counter() - t0, 4)},
+            commit=False,
+        )
+
+        while self.num_steps_sampled < cfg.total_timesteps - cfg.learning_starts:
+            self._run_iteration()
+            if self.iteration % cfg.status_report_freq == 0:
+                print(self.logger.table(STATUS_HEADERS), flush=True)
+
+    def _run_iteration(self) -> None:
+        cfg = self.config
+        retrain = self.iteration % self.sur_train_freq == 0
+        horizon = int(self.schedule(iteration=self.iteration))
+        timings: Dict[str, float] = {}
+
+        def lap(name: str, t: float) -> float:
+            self._sync()
+            now = time.perf_counter()
+            timings[name] = round(now - t, 4)
+            return now
+
+        t = time.perf_counter()
+        _, collect_rmean = self.collect(cfg.rollout_length, random=False)
+        t = lap("t_collect", t)
+
+        if retrain:
+            self.gc_monitor.drain()  # reset the window to this retrain
+            t_delta0 = time.perf_counter()
+            self.update_delta_transform()
+            t_delta = time.perf_counter() - t_delta0
+            logs = self.update_surrogates()
+            gc_pause, gc_max, gc_counts = self.gc_monitor.drain()
+            self.logger.log(
+                {"num_ensemble_updates": self.num_ensemble_updates, **logs,
+                 "t_delta": round(t_delta, 4), "t_gc": round(gc_pause, 4),
+                 "gc_max_pause": round(gc_max, 4), "n_gc2": gc_counts[2]},
+                commit=False,
+            )
+            t = lap("t_surrogate", t)
+
+        _, imag_rmean = self.imagine(horizon)
+        t = lap("t_imagine", t)
+
+        pol_metrics = self.update_policy()
+        t = lap("t_policy", t)
+
+        packed = torch.stack([
+            self.world_replay.ntimesteps.double(), collect_rmean.double(),
+            imag_rmean.double(), pol_metrics["qf_loss"].double(),
+            pol_metrics["policy_loss"].double(), self.replay.total_steps.double(),
+        ]).tolist()
+        pulled = dict(zip(LOG_SCALARS, packed))
+        t = lap("t_pull", t)
+
+        if self.iteration % cfg.agent_eval_freq == 0:
+            self.logger.log(self.evaluate_policy(), commit=False)
+            self.logger.log(self.evaluate_surrogate(), commit=False)
+            wmean, wstd = torch.stack(R.episode_returns(self.world_replay)).tolist()
+            self.logger.log({"world_return_mean": wmean, "world_return_std": wstd},
+                            commit=False)
+            t = lap("t_eval", t)
+
+        self.logger.log(
+            {
+                "iteration": self.iteration,
+                "num_steps_sampled": self.num_steps_sampled + cfg.learning_starts,
+                "horizon": horizon,
+                "world_buffer_samples": int(pulled["world_buffer_samples"]),
+                "collect_reward_mean": float(pulled["collect_reward_mean"]),
+                "imagined_reward_mean": float(pulled["imagined_reward_mean"]),
+                "num_pol_updates": self.num_pol_updates,
+                "sac_qf_loss": float(pulled["sac_qf_loss"]),
+                "sac_policy_loss": float(pulled["sac_policy_loss"]),
+                "env_steps_per_sec": self.throughput.update(int(pulled["total_steps"])),
+                **timings,
+                "time": time.time() - self._start_time,
+            },
+            commit=True,
+        )
+        self.iteration += 1

@@ -1,0 +1,223 @@
+"""MBPO CLI entry point of the port (port of ``pdecontrol_tpu/mbrl/script.py``;
+reference ``pdecontrol/mbrl/script.py``).
+
+The same flag names as the JAX CLI: JSON-dict-valued flags for
+model/surrogate/training/curriculum/trainer are deep-merged over the factory
+defaults; components are chosen by registry name.  Run e.g.:
+
+    python -m pdecontrol_tpu_torch.mbrl.script --solver pallas \
+        --training '{"tau": 5, "initial": {"tbtt": 10, "patience": 10,
+                     "batch_size": 64}, "iterations": {"tbtt": 10,
+                     "patience": 5, "batch_size": 64}}' \
+        --trainer '{"initial": {"min_steps": 250, "max_steps": 2000},
+                    "iterations": {"min_steps": 50, "max_steps": 250}}' \
+        --curriculum '{"scheduler": "LinearScheduler", "steptype":
+                       "iteration", "start": 0, "stop": 10, "vmin": 15,
+                       "vmax": 15}' \
+        --learning_starts 5000 --policy_train_steps_per_sample 10 \
+        --rollout_length_schedule '{"scheduler": "LinearScheduler",
+            "steptype": "iteration", "start": 0, "stop": 200, "vmin": 3,
+            "vmax": 7}'
+
+It runs on the GPU when one is present (``--platform cpu`` forces the CPU).
+``--no_fuse_iteration``, ``--no_fuse_fit`` and
+``--sequential_member_training`` are accepted and change nothing: the port
+always runs the unfused phase order, the per-epoch fit and member-by-member
+training.  Flags for features not ported yet raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import traceback
+
+from pdecontrol_tpu_torch.mbrl.config import MBPOConfig
+from pdecontrol_tpu_torch.models.factories import REGISTRY
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--platform", type=str, default=None, choices=["cpu", "gpu", "cuda"],
+                   help="device to run on (default: the GPU if present)")
+    p.add_argument("--debug_nans", action="store_true", help="not yet ported")
+    # Logging & evaluation
+    p.add_argument("--project", type=str, default=None)
+    p.add_argument("--name", type=str, default=None)
+    p.add_argument("--run_dir", type=str, default="runs/mbpo")
+    p.add_argument("--offline", action="store_true",
+                   help="disable wandb (local JSONL logging only)")
+    p.add_argument("--wandb", action="store_true", help="not yet ported")
+    p.add_argument("--agent_eval_freq", type=int, default=50)
+    p.add_argument("--num_eval_episodes", type=int, default=10)
+    p.add_argument("--surrogate_eval_horizon", type=int, default=30)
+    p.add_argument("--status_report_freq", type=int, default=5)
+    p.add_argument("--logging_freq", type=int, default=10)
+    p.add_argument("--checkpoint_freq", type=int, default=0,
+                   help="> 0 is not yet ported")
+    p.add_argument("--resume", action="store_true", help="not yet ported")
+    p.add_argument("--profile_dir", type=str, default=None, help="not yet ported")
+    p.add_argument("--no_fuse_iteration", action="store_true",
+                   help="accepted; the port always runs the unfused phases")
+    p.add_argument("--no_fuse_fit", action="store_true",
+                   help="accepted; the port always fits with the per-epoch loop")
+    # General
+    p.add_argument("--total_timesteps", type=int, default=1_000_000)
+    p.add_argument("--seed", type=int, default=0)
+    # Device mesh
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="mesh size sharding env/training batches (> 1 not yet ported)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="mesh size sharding ensemble members (> 1 not yet ported)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="multi-process runtime (not yet ported)")
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
+    # Env & rollouts
+    p.add_argument("--env_id", default="KuramotoSivashinskyEnv-v0")
+    p.add_argument("--env_config", type=str, default="{}")
+    p.add_argument("--solver", type=str, default=None,
+                   choices=["xla", "pallas", "pallas_packed"],
+                   help="control-period backend (shorthand for env_config['solver']): "
+                        "'xla' the plain PyTorch path, 'pallas' the CUDA kernel; "
+                        "'pallas_packed' is not yet ported")
+    p.add_argument("--num_envs", "--cpus", dest="num_envs", type=int, default=10)
+    p.add_argument("--gamma", type=float, default=0.99)
+    p.add_argument("--capacity", type=int, default=1_000_000)
+    p.add_argument("--rollout_length", type=int, default=1)
+    p.add_argument("--pool_size", type=int, default=256)
+    p.add_argument("--agent_stride", type=int, default=1,
+                   help="sensor stride on the SAC agent's observations")
+    p.add_argument("--world_stride", type=int, default=1,
+                   help="sensor stride on the surrogate's world space (>1 rejected)")
+    # MBPO
+    p.add_argument("--learning_starts", type=int, default=20_000)
+    p.add_argument("--policy_train_steps_per_sample", type=int, default=5)
+    p.add_argument("--model_buffer_store_iterations", type=int, default=30)
+    p.add_argument("--model_rollouts_per_sample", type=int, default=100)
+    p.add_argument("--model_rollouts_batch_size", type=int, default=100)
+    p.add_argument("--model_buffer_max_capacity", type=int, default=1_000_000)
+    p.add_argument("--val_split_ratio", type=float, default=0.1)
+    p.add_argument("--rollout_length_schedule", type=str, default="{}")
+    # Surrogate training
+    p.add_argument("--surrogate_train_freq", type=int, default=500)
+    p.add_argument("--loss", type=str, default="MSELoss")
+    p.add_argument("--factory", type=str, default="KSAutoRegConvolutionalLSTM")
+    p.add_argument("--model", type=str, default="{}")
+    p.add_argument("--surrogate", type=str, default="{}")
+    p.add_argument("--training", type=str, default="{}")
+    p.add_argument("--curriculum", type=str, default="{}")
+    p.add_argument("--trainer", type=str, default="{}")
+    # Ensemble
+    p.add_argument("--num_dynamics_models", type=int, default=3)
+    p.add_argument("--num_elite_models", type=int, default=3)
+    p.add_argument("--sequential_member_training", action="store_true",
+                   help="accepted; the port always trains members one by one")
+    # SAC
+    p.add_argument("--policy", type=str, default="Gaussian")
+    p.add_argument("--policy_batch_size", type=int, default=256)
+    p.add_argument("--tau", dest="sac_tau", type=float, default=0.005)
+    p.add_argument("--target_entropy", type=float, default=-3.0)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--alpha", type=float, default=0.2)
+    p.add_argument("--target_update_interval", type=int, default=1)
+    p.add_argument("--hidden_size", type=int, default=256)
+    p.add_argument("--automatic_entropy_tuning", action="store_true")
+    p.add_argument("--reward_scale", type=float, default=1.0,
+                   help="SAC-update reward scaling")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> MBPOConfig:
+    cfg = MBPOConfig(
+        project=args.project,
+        name=args.name,
+        run_dir=args.run_dir,
+        use_wandb=args.wandb and not args.offline,
+        agent_eval_freq=args.agent_eval_freq,
+        num_eval_episodes=args.num_eval_episodes,
+        surrogate_eval_horizon=args.surrogate_eval_horizon,
+        status_report_freq=args.status_report_freq,
+        logging_freq=args.logging_freq,
+        checkpoint_freq=args.checkpoint_freq,
+        resume=args.resume,
+        profile_dir=args.profile_dir,
+        fuse_iteration=not args.no_fuse_iteration,
+        fuse_fit=not args.no_fuse_fit,
+        total_timesteps=args.total_timesteps,
+        seed=args.seed,
+        data_parallel=args.data_parallel,
+        model_parallel=args.model_parallel,
+        env_id=args.env_id,
+        env_config=(
+            {**json.loads(args.env_config), "solver": args.solver}
+            if args.solver else json.loads(args.env_config)
+        ),
+        num_envs=args.num_envs,
+        gamma=args.gamma,
+        capacity=args.capacity,
+        rollout_length=args.rollout_length,
+        pool_size=args.pool_size,
+        agent_stride=args.agent_stride,
+        world_stride=args.world_stride,
+        learning_starts=args.learning_starts,
+        policy_train_steps_per_sample=args.policy_train_steps_per_sample,
+        model_buffer_store_iterations=args.model_buffer_store_iterations,
+        model_rollouts_per_sample=args.model_rollouts_per_sample,
+        model_rollouts_batch_size=args.model_rollouts_batch_size,
+        model_buffer_max_capacity=args.model_buffer_max_capacity,
+        val_split_ratio=args.val_split_ratio,
+        rollout_length_schedule=json.loads(args.rollout_length_schedule),
+        surrogate_train_freq=args.surrogate_train_freq,
+        loss=args.loss,
+        factory=args.factory,
+        model=json.loads(args.model),
+        surrogate=json.loads(args.surrogate),
+        training=json.loads(args.training),
+        curriculum=json.loads(args.curriculum),
+        trainer=json.loads(args.trainer),
+        num_dynamics_models=args.num_dynamics_models,
+        num_elite_models=args.num_elite_models,
+        vmap_ensemble_training=not args.sequential_member_training,
+        policy=args.policy,
+        policy_batch_size=args.policy_batch_size,
+        sac_tau=args.sac_tau,
+        target_entropy=args.target_entropy,
+        lr=args.lr,
+        alpha=args.alpha,
+        target_update_interval=args.target_update_interval,
+        hidden_size=args.hidden_size,
+        automatic_entropy_tuning=args.automatic_entropy_tuning,
+        reward_scale=args.reward_scale,
+    )
+    factory = REGISTRY.get(args.factory)
+    return cfg.merged_with_factory_defaults(factory.defaults if factory else {})
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.debug_nans or args.coordinator_address:
+        raise NotImplementedError(
+            "not yet ported: " + ("--debug_nans" if args.debug_nans
+                                  else "the multi-process runtime (--coordinator_address)")
+        )
+    config = config_from_args(args)
+    device = None if args.platform is None else ("cpu" if args.platform == "cpu" else "cuda")
+
+    from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController
+
+    mbpo = PDEModelBasedController(config, device=device)
+    try:
+        mbpo.learn()
+    except Exception:
+        print(traceback.format_exc(), file=sys.stderr)
+        return 1
+    finally:
+        mbpo.logger.finish()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,113 @@
+"""Imagined (world-model) vectorised environment (port of
+``pdecontrol_tpu/mbrl/world.py``; reference ``mbrl/world/world.py``).
+
+Reference semantics kept:
+  * ``reset`` draws a batch of (left-padded) tau-step warmup windows from the
+    real replay, teacher-forces every ensemble member over them, and returns
+    the elite-selected last prediction (world.py:176-204);
+  * ``step`` advances every member one control period on the previous
+    *selected* outputs, re-entering the teacher-forcing branch on the
+    previous prediction each step (world.py:159-161);
+  * rewards come from inverse-transforming the predicted obs and the
+    forcing-field action back to physical space and applying the real env's
+    reward function (world.py:164-171);
+  * the whole batch resets only when EVERY sub-env has hit the rollout
+    horizon or the env time limit (world.py:122-134); ``terminated`` is
+    always False.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from pdecontrol_tpu_torch.data import replay as R
+from pdecontrol_tpu_torch.mbrl.transform_sets import ControllerTransforms
+from pdecontrol_tpu_torch.models.surrogate import (
+    EnsembleState,
+    ensemble_rollout,
+    select_elites,
+)
+
+
+@dataclasses.dataclass
+class WorldState:
+    obs: torch.Tensor  # [B, C, H] last selected prediction (world space)
+    hidden: Any  # per-member transition carries, leading axis M
+    timesteps: torch.Tensor  # [B] env-step counter (starts at warmup offset)
+    simulated: int  # steps since reset
+
+
+class WorldModel:
+    """Static config of the imagined env; its state is explicit."""
+
+    def __init__(self, num_envs: int, max_episode_steps: int, reward_fn, tau: int):
+        self.num_envs = num_envs
+        self.max_episode_steps = max_episode_steps
+        self.reward_fn = reward_fn
+        self.tau = tau
+
+    @torch.no_grad()
+    def reset(self, generator: Optional[torch.Generator], ens: EnsembleState,
+              replay: R.ReplayState, tr: ControllerTransforms) -> WorldState:
+        batch = R.sample_starting(replay, generator, self.num_envs, self.tau)
+        return self.reset_from_batch(generator, ens, tr.replay_to_world(batch), tr)
+
+    @torch.no_grad()
+    def reset_from_batch(self, generator: Optional[torch.Generator],
+                         ens: EnsembleState, batch, tr: ControllerTransforms
+                         ) -> WorldState:
+        """Teacher-force every member over an explicit world-space warmup
+        window and return the elite-selected last prediction
+        (world.py:176-204)."""
+        roll = ensemble_rollout(ens, batch.obs, batch.actions,
+                                dscaling=tr.undscaling.inv)
+        selected, _ = select_elites(generator, ens, roll.outputs[:, :, -1])
+        return WorldState(
+            obs=selected,
+            hidden=roll.hidden,
+            timesteps=batch.steps[:, -1].to(torch.int64),
+            simulated=0,
+        )
+
+    @torch.no_grad()
+    def advance(self, generator: Optional[torch.Generator], state: WorldState,
+                ens: EnsembleState, waction: torch.Tensor, tr: ControllerTransforms
+                ) -> Tuple[WorldState, torch.Tensor]:
+        """One imagined step without truncation: advance every member one
+        control period on the previous *selected* outputs, elite-select, and
+        score the physical-space reward (world.py:147-174)."""
+        roll = ensemble_rollout(ens, state.obs[:, None], waction[:, None],
+                                dscaling=tr.undscaling.inv, hidden=state.hidden)
+        selected, _ = select_elites(generator, ens, roll.outputs[:, :, -1])
+        phys_obs = tr.world_to_raw_obs(selected)
+        phys_phi = tr.world_action_to_phys_field(waction)
+        reward = self.reward_fn(phys_obs, phys_phi)
+        stepped = WorldState(
+            obs=selected,
+            hidden=roll.hidden,
+            timesteps=state.timesteps + 1,
+            simulated=state.simulated + 1,
+        )
+        return stepped, reward
+
+    @torch.no_grad()
+    def step(self, generator: Optional[torch.Generator], state: WorldState,
+             ens: EnsembleState, agent_action: torch.Tensor,
+             tr: ControllerTransforms, horizon: int, replay: R.ReplayState):
+        """One imagined step + batch auto-reset.  Returns ``(state, (obs,
+        reward, terminated, truncated, final_obs))`` with obs in world space
+        (what the imagined replay stores)."""
+        env_action = tr.agent_to_env_action(agent_action)
+        waction = tr.env_action_to_world(env_action)  # [B, C, H] field
+        stepped, reward = self.advance(generator, state, ens, waction, tr)
+        selected = stepped.obs
+
+        env_limit = stepped.timesteps >= self.max_episode_steps
+        all_done = stepped.simulated >= horizon or bool(torch.all(env_limit))
+        truncated = torch.full_like(env_limit, all_done)
+        terminated = torch.zeros_like(truncated)
+        state = self.reset(generator, ens, replay, tr) if all_done else stepped
+        return state, (state.obs, reward, terminated, truncated, selected)
