@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Three phases, each timed:
+Seven phases, each timed:
 
-  1. build — compile kernel K1 (``pdecontrol_tpu_torch/csrc/
-     ks_control_period.cu``) from the checkout's sources with nvcc;
+  1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
+     ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
+     from the checkout's sources, one nvcc for each, started together;
   2. K1 against its plain PyTorch version on the card, float32, both
      objectives: 20 sub-steps at batch 12 and 8 (rtol 2e-5, atol 2e-6, the
      tolerance of ``tests/test_pallas_ks.py``); 3 periods x 25 sub-steps
@@ -18,13 +19,31 @@ Three phases, each timed:
   3. the main path — ``pdecontrol_tpu_torch.mbrl.script.main`` with the
      flagship arguments of ``runscripts/mbpo_ks.sh`` and ``--solver pallas``
      for a few iterations (see ``MAIN_ARGS``), then checks that K1 ran
-     during ``learn()``, that every logged loss and return is finite and
-     that ``metrics.jsonl`` exists.
+     during the run, that every logged loss and return is finite and that
+     ``metrics.jsonl`` exists;
+  4. K2 against its plain PyTorch version on the card (see
+     ``check_limb_kernel``), for ``bf16``, ``bf16_3x`` and ``bf16_4x`` and
+     both objectives, on smooth fields; then K2's and the plain version's
+     time per period for ``bf16_3x`` at batch 10 and 1024;
+  5. the attractor gate (``pdecontrol_tpu_torch.evaluation.bf16_gate``) at
+     full size: one float32 run of 512 envs x 400 periods after 100,
+     compared with a ``bf16_3x`` and a ``bf16_4x`` run; both verdicts must
+     pass, and each error is printed beside the TPU receipt's
+     (``results/bf16_fidelity_{3x,4x}.json``);
+  6. the bf16_3x MBPO path — ``MAIN_ARGS`` with ``--solver pallas_packed``
+     and ``pallas_precision`` bf16_3x (``runscripts/mbpo_ks_bf16.sh``),
+     checked as phase 3, and K2 must have launched;
+  7. the model-free SAC baseline CLI (``pdecontrol_tpu_torch.sac.train``)
+     through K2 for 5,000 env steps; K2 must have launched and every logged
+     loss and return must be finite.
 
-It prints the card's name and power limit, one JSON line describing the
-kernels, and as its last line ``{"ok": true, "device": {...}}``.  Without a
-CUDA device, or outside a checkout of the repository, or when any phase
-fails, it exits non-zero and prints no result.
+Every path of phases 3, 6 and 7 runs with the kernels' launch counts set to
+0 just before it, and they are read just after it; K1 runs the reset-pool
+transient of every path.  The script prints the card's name and power
+limit, one JSON line describing the kernels, and as its last line
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout of the repository, or when any phase fails, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -39,6 +58,17 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(HERE, "runs", "chip_smoke")
+RUN_DIR_BF16 = os.path.join(HERE, "runs", "chip_smoke_bf16")
+RUN_DIR_SAC = os.path.join(HERE, "runs", "chip_smoke_sac")
+KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
+LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
+# K2 against its plain version.  The two sum the stencil products in other
+# orders, so the bf16 rounding of an operand can flip on a last-bit
+# difference.  In the limb modes the lo limb absorbs a flip; in one-pass
+# bf16 a flip moves u by ~1e-3, and on an H100 its error grows from <1e-6
+# at 25 sub-steps to ~2e-3 at 75 and ~9e-3 at 250.  So bf16 is held over
+# periods of at most 25 sub-steps, each from the state both sides start at.
+K2_TOL = (1e-4, 1e-4)
 
 # runscripts/mbpo_ks.sh with --solver pallas.  Cut from the flagship:
 # total_timesteps 50000 -> 5060 (6 iterations after the 5000-step warmup),
@@ -69,6 +99,24 @@ MAIN_ARGS = [
     "--surrogate_train_freq", "30",
     "--solver", "pallas",
     "--run_dir", RUN_DIR,
+]
+
+# runscripts/mbpo_ks_bf16.sh: the same run through K2 at bf16_3x.
+BF16_ARGS = MAIN_ARGS[: MAIN_ARGS.index("--solver")] + [
+    "--solver", "pallas_packed",
+    "--env_config", json.dumps({"pallas_precision": "bf16_3x"}),
+    "--run_dir", RUN_DIR_BF16,
+]
+
+# The SAC baseline's defaults (SAC hidden 256, batch 256, 10 envs, one
+# update per env step, a log record every 100 steps of the 10 envs) through
+# K2, cut to 5,000 env steps after a 2,000-step random warmup; evaluations
+# (10 episodes of 400 steps) at 3,000 and 4,000 steps.
+SAC_ARGS = [
+    "--env_config", json.dumps({"solver": "pallas_packed", "pallas_precision": "bf16_3x"}),
+    "--total_timesteps", "5000",
+    "--learning_starts", "2000",
+    "--run_dir", RUN_DIR_SAC,
 ]
 
 
@@ -104,6 +152,38 @@ def time_period(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def holds(kernel, label, got, ref, rtol, atol, errors):
+    """Hold one kernel output to its reference; record the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    errors.append(err)
+    ok = bool(torch.allclose(got, ref, rtol=rtol, atol=atol))
+    print(f"   {label}: max abs err {err:.3e} (rtol {rtol}, atol {atol}) "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{kernel} disagrees with the plain version: {label}")
+
+
+def build_kernels() -> None:
+    """Phase 1: one nvcc for each kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pdecontrol_tpu_torch.ops import cuda_build, pallas_ks, pallas_ks_packed
+
+    def one(source):
+        t = time.perf_counter()
+        cuda_build.build(source)
+        return source, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        for source, seconds in pool.map(one, KERNEL_SOURCES):
+            print(f"   {source}: build seconds {seconds:.2f}", flush=True)
+    pallas_ks.build()
+    pallas_ks_packed.build()
+
+
 def check_kernel(errors):
     """Phase 2: K1 against the plain version; returns the timings."""
     import numpy as np
@@ -121,14 +201,7 @@ def check_kernel(errors):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
     def compare(label, got, ref, rtol, atol):
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        errors.append(err)
-        ok = bool(torch.allclose(got, ref, rtol=rtol, atol=atol))
-        print(f"   {label}: max abs err {err:.3e} (rtol {rtol}, atol {atol}) "
-              f"{'ok' if ok else 'FAILED'}", flush=True)
-        if not ok:
-            raise AssertionError(f"K1 disagrees with the plain version: {label}")
+        holds("K1", label, got, ref, rtol, atol, errors)
 
     x = np.arange(64)
     for objective in ("l2control", "dissipation"):
@@ -184,36 +257,221 @@ def check_kernel(errors):
     return timings
 
 
-def run_main_path():
-    """Phase 3: the port's CLI entry point for a few iterations."""
-    from pdecontrol_tpu_torch.mbrl import script
-    from pdecontrol_tpu_torch.ops import pallas_ks
+def smooth_fields(rng, b, scale, modes=8):
+    """``b`` smooth periodic rows of 64 points (the lowest ``modes``
+    wavenumbers, as on the KS attractor), max |u| = ``scale``."""
+    import numpy as np
 
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
-    print("   args: " + " ".join(MAIN_ARGS), flush=True)
+    f = np.fft.rfft(rng.normal(size=(b, 64)), axis=-1)
+    f[:, modes:] = 0
+    u = np.fft.irfft(f, n=64, axis=-1)
+    return (u / np.abs(u).max() * scale).astype(np.float32)
+
+
+def check_limb_kernel(errors, k1_errors):
+    """Phase 4: K2 against its plain version, on smooth fields with
+    |u| <= 3 (the attractor's range), at rtol/atol ``K2_TOL``:
+
+      * 20 sub-steps at batch 12 and 8, every limb mode, both objectives;
+      * 3 control periods x 25 sub-steps through ``env.step`` at batch 8
+        (K2; each period held from the state both sides start it from), at
+        batch 7 and for one unbatched state (odd flat batches go to K1 in
+        float32: no K2 launch, held to K1's plain version at 3e-5 / 3e-6,
+        and counted with K1's errors);
+      * one 250-sub-step period at batch 10 and 1024 for ``bf16_3x`` and
+        ``bf16_4x`` (one-pass ``bf16`` is held at 20 sub-steps only: its
+        rounding flips add up over a full period).
+
+    Returns K2's and the plain version's time per ``bf16_3x`` period."""
+    import numpy as np
+    import torch
+
+    from pdecontrol_tpu_torch.envs.kuramoto import EnvState, KuramotoSivashinsky
+    from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed as K
+    from pdecontrol_tpu_torch.ops.kuramoto import KSOperators
+
+    dev = torch.device("cuda")
+    ops = KSOperators.create(64, 22.0, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(1)
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def compare(label, got, ref, kernel="K2", tol=K2_TOL):
+        holds(kernel, label, got, ref, tol[0], tol[1], errors if kernel == "K2" else k1_errors)
+
+    for precision in LIMB_MODES:
+        for objective in ("l2control", "dissipation"):
+            tag = f"{precision} {objective}"
+            for b in (12, 8):
+                u, phi = tensor(smooth_fields(rng, b, 3.0)), tensor(smooth_fields(rng, b, 0.5))
+                got = K.ks_control_period_packed(ops, u, phi, 1e-3, 20, objective, precision)
+                ref = K.ks_control_period_packed_plain(ops, u, phi, 1e-3, 20, objective,
+                                                       precision)
+                for name, g, r in zip(("u", "reward"), got, ref):
+                    compare(f"{tag} B={b} 20 sub-steps {name}", g, r)
+
+            env = KuramotoSivashinsky.create(cfg_steps=25, objective=objective,
+                                             legacy_objective=False, solver="pallas_packed",
+                                             pallas_precision=precision, device=dev)
+            for shape in ((8,), (7,), ()):
+                flat = int(np.prod(shape))
+                state = EnvState(u=tensor(smooth_fields(rng, flat, 3.0).reshape(shape + (64,))),
+                                 step=torch.zeros(shape, dtype=torch.int32, device=dev))
+                before = K.launch_count
+                for t in range(3):
+                    a = tensor(rng.uniform(-1, 1, shape + (1, 4)))
+                    u_in = state.u.reshape(-1, 64)
+                    phi = env.action_to_phi(a).reshape(-1, 64)
+                    state, out = env.step(state, a)
+                    label = f"{tag} env.step {list(shape) or 'unbatched'} period {t}"
+                    if flat % 2 == 0:
+                        ref = K.ks_control_period_packed_plain(ops, u_in, phi, 1e-3, 25,
+                                                               objective, precision)
+                        kernel, tol = "K2", K2_TOL
+                    else:
+                        ref = pallas_ks.ks_control_period_plain(ops, u_in, phi, 1e-3, 25,
+                                                                objective)
+                        kernel, tol = "K1", (3e-5, 3e-6)
+                    compare(label + " obs", out.obs.reshape(-1, 64), ref[0], kernel, tol)
+                    compare(label + " reward", out.reward.reshape(-1), ref[1], kernel, tol)
+                torch.cuda.synchronize()
+                launched = K.launch_count - before
+                want = 3 if flat % 2 == 0 else 0
+                print(f"   {tag} env.step {list(shape) or 'unbatched'}: {launched} K2 launches",
+                      flush=True)
+                if launched != want:
+                    raise AssertionError(f"{launched} K2 launches for batch shape {shape}, "
+                                         f"expected {want}")
+
+            if precision == "bf16":
+                continue
+            for b in (10, 1024):
+                u, phi = tensor(smooth_fields(rng, b, 3.0)), tensor(smooth_fields(rng, b, 0.5))
+                got = K.ks_control_period_packed(ops, u, phi, 1e-3, 250, objective, precision)
+                ref = K.ks_control_period_packed_plain(ops, u, phi, 1e-3, 250, objective,
+                                                       precision)
+                for name, g, r in zip(("u", "reward"), got, ref):
+                    compare(f"{tag} B={b} 250 sub-steps {name}", g, r)
+
+    timings = {}
+    for b in (10, 1024):
+        u, phi = tensor(smooth_fields(rng, b, 3.0)), tensor(smooth_fields(rng, b, 0.5))
+
+        def kernel():
+            return K.ks_control_period_packed(ops, u, phi, 1e-3, 250, "l2control", "bf16_3x")
+
+        def plain():
+            return K.ks_control_period_packed_plain(ops, u, phi, 1e-3, 250, "l2control",
+                                                    "bf16_3x")
+
+        # Plain, kernel, kernel, plain: the two versions alternate.
+        p1 = time_period(plain, 3)
+        k1 = time_period(kernel, 50)
+        k2 = time_period(kernel, 50)
+        p2 = time_period(plain, 3)
+        timings[b] = (min(k1, k2), min(p1, p2))
+        print(f"   per bf16_3x control period (250 sub-steps) at B={b}: K2 {k1:.4f} / "
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms", flush=True)
+    return timings
+
+
+def run_gate():
+    """Phase 5: the attractor gate at its full size."""
+    import torch
+
+    from pdecontrol_tpu_torch.envs.kuramoto import KuramotoSivashinsky
+    from pdecontrol_tpu_torch.evaluation import bf16_gate
+    from pdecontrol_tpu_torch.ops import pallas_ks_packed
+
+    dev = torch.device("cuda")
+    batch, transient, periods = 512, 100, 400
+
+    def stats(env):
+        t = time.perf_counter()
+        s = bf16_gate.rollout_stats(env, torch.Generator(device=dev).manual_seed(0),
+                                    batch, transient, periods)
+        print(f"   {env.solver}/{env.pallas_precision}: {batch} envs x {transient} + "
+              f"{periods} periods in {time.perf_counter() - t:.2f} s", flush=True)
+        return s
+
+    fp32 = stats(KuramotoSivashinsky.create(solver="xla", device=dev))
+    verdicts = {}
+    for precision in ("bf16_3x", "bf16_4x"):
+        env = KuramotoSivashinsky.create(solver="pallas_packed", pallas_precision=precision,
+                                         device=dev)
+        before = pallas_ks_packed.launch_count
+        verdict = bf16_gate.compare(fp32, stats(env), 0.02, 0.10)
+        launched = pallas_ks_packed.launch_count - before
+        if launched != transient + periods:
+            raise AssertionError(f"{launched} K2 launches in the {precision} gate run")
+        tpu = json.load(open(os.path.join(HERE, "results",
+                                          f"bf16_fidelity_{precision[5:]}.json")))
+        for k in ("mean_energy", "mean_ux2", "mean_uxx2"):
+            v = verdict[k]
+            print(f"   {precision} {k}: fp32 {v['fp32']:.6f} fast {v['fast']:.6f} "
+                  f"rel_err {v['rel_err']:.3e} (tol {v['tol']}; TPU receipt "
+                  f"{tpu[k]['rel_err']:.3e})", flush=True)
+        s = verdict["spectrum"]
+        print(f"   {precision} spectrum: {s['bins_compared']} bins, max rel_err "
+              f"{s['max_rel_err']:.3e}, mean {s['mean_rel_err']:.3e} (tol {s['tol']}; TPU "
+              f"receipt max {tpu['spectrum']['max_rel_err']:.3e}, mean "
+              f"{tpu['spectrum']['mean_rel_err']:.3e})", flush=True)
+        if not verdict["ok"]:
+            raise AssertionError(f"the {precision} gate failed: {json.dumps(verdict)}")
+        verdicts[precision] = verdict
+    return verdicts
+
+
+def counted_run(label, fn):
+    """Run one path with both kernels' launch counts set to 0 just before
+    it; return its result and the counts read just after it."""
+    from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed
+
     pallas_ks.launch_count = 0
-    rc = script.main(MAIN_ARGS)
-    launches = pallas_ks.launch_count
-    if rc != 0:
-        raise RuntimeError(f"learn() failed (script.main returned {rc})")
-    print(f"   K1 launches during the run: {launches}", flush=True)
-    if launches <= 0:
-        raise AssertionError("the main path never launched K1")
+    pallas_ks_packed.launch_count = 0
+    out = fn()
+    counts = {"K1": pallas_ks.launch_count, "K2": pallas_ks_packed.launch_count}
+    print(f"   {label}: kernel launches {json.dumps(counts)}", flush=True)
+    return out, counts
 
-    path = os.path.join(RUN_DIR, "metrics.jsonl")
+
+def require(counts, kernels, label):
+    for k in kernels:
+        if counts[k] <= 0:
+            raise AssertionError(f"{label} never launched {k}")
+
+
+def check_records(path, checked):
     if not os.path.exists(path):
         raise AssertionError(f"{path} was not written")
     records = [json.loads(line) for line in open(path)]
-    iters = [r for r in records if "iteration" in r]
-    checked = ("train_loss", "val_loss", "sac_qf_loss", "sac_policy_loss",
-               "eval_return_mean", "collect_reward_mean", "imagined_reward_mean",
-               "world_return_mean", "surrogate_open_loop_mse")
     seen = {k: [r[k] for r in records if k in r] for k in checked}
     for k, vals in seen.items():
         if not vals:
             raise AssertionError(f"no {k} was logged")
         if not all(isinstance(v, (int, float)) and math.isfinite(v) for v in vals):
             raise AssertionError(f"{k} not finite: {vals}")
+    return records, seen
+
+
+def run_mbpo(args, run_dir, kernels):
+    """Phases 3 and 6: the port's MBPO CLI entry point for 6 iterations."""
+    from pdecontrol_tpu_torch.mbrl import script
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print("   args: " + " ".join(args), flush=True)
+    rc, counts = counted_run("script.main", lambda: script.main(args))
+    if rc != 0:
+        raise RuntimeError(f"learn() failed (script.main returned {rc})")
+    require(counts, kernels, "the MBPO run")
+
+    records, seen = check_records(
+        os.path.join(run_dir, "metrics.jsonl"),
+        ("train_loss", "val_loss", "sac_qf_loss", "sac_policy_loss", "eval_return_mean",
+         "collect_reward_mean", "imagined_reward_mean", "world_return_mean",
+         "surrogate_open_loop_mse"))
+    iters = [r for r in records if "iteration" in r]
     retrains = sum(1 for r in records if "num_ensemble_updates" in r)
     if len(iters) != 6 or retrains < 2:
         raise AssertionError(f"{len(iters)} iterations, {retrains} retrains")
@@ -226,7 +484,29 @@ def run_main_path():
           f"t_warmup_eval {first['t_warmup_eval']} s", flush=True)
     for k, vals in seen.items():
         print(f"   {k}: {vals}", flush=True)
-    return launches
+    return counts
+
+
+def run_sac():
+    """Phase 7: the SAC baseline CLI through K2."""
+    from pdecontrol_tpu_torch.sac import train
+
+    shutil.rmtree(RUN_DIR_SAC, ignore_errors=True)
+    print("   args: " + " ".join(SAC_ARGS), flush=True)
+    t = time.perf_counter()
+    rc, counts = counted_run("sac.train.main", lambda: train.main(SAC_ARGS))
+    if rc != 0:
+        raise RuntimeError(f"the SAC CLI returned {rc}")
+    require(counts, ("K1", "K2"), "the SAC run")
+    records, seen = check_records(os.path.join(RUN_DIR_SAC, "metrics.jsonl"),
+                                  ("sac_qf_loss", "collect_reward_mean", "eval_return_mean"))
+    if records[-1]["num_steps_sampled"] < 5000:
+        raise AssertionError(f"the SAC run stopped at {records[-1]['num_steps_sampled']}")
+    print(f"   {records[-1]['num_steps_sampled']} env steps in "
+          f"{time.perf_counter() - t:.2f} s (set-up included)", flush=True)
+    for k, vals in seen.items():
+        print(f"   {k}: {vals}", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -244,34 +524,59 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     import pdecontrol_tpu_torch  # noqa: F401  (turns TF32 off)
-    from pdecontrol_tpu_torch.ops import pallas_ks
 
-    t0 = phase("1 build K1")
-    tb = time.perf_counter()
-    pallas_ks.build()
-    print(f"   build seconds: {time.perf_counter() - tb:.2f}", flush=True)
-    done("1 build K1", t0)
+    t0 = phase("1 build K1 and K2")
+    build_kernels()
+    done("1 build K1 and K2", t0)
 
     t0 = phase("2 K1 against the plain version")
-    errors = []
-    timings = check_kernel(errors)
+    k1_errors = []
+    k1_timings = check_kernel(k1_errors)
     done("2 K1 against the plain version", t0)
 
-    t0 = phase("3 main path")
-    launches = run_main_path()
-    done("3 main path", t0)
+    t0 = phase("3 main path (float32, K1)")
+    k1_counts = run_mbpo(MAIN_ARGS, RUN_DIR, ("K1",))
+    done("3 main path (float32, K1)", t0)
 
-    ms, plain_ms = timings[10]
-    print(json.dumps({"kernels": [{
-        "name": "ks_control_period",
-        "route": "cuda",
-        "source": "pdecontrol_tpu_torch/csrc/ks_control_period.cu",
-        "replaces": "pdecontrol_tpu/ops/pallas_ks.py:100",
-        "launches": launches,
-        "max_abs_err": max(errors),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    t0 = phase("4 K2 against the plain version")
+    k2_errors = []
+    k2_timings = check_limb_kernel(k2_errors, k1_errors)
+    done("4 K2 against the plain version", t0)
+
+    t0 = phase("5 attractor gate")
+    run_gate()
+    done("5 attractor gate", t0)
+
+    t0 = phase("6 bf16_3x MBPO path (K2)")
+    k2_counts = run_mbpo(BF16_ARGS, RUN_DIR_BF16, ("K1", "K2"))
+    done("6 bf16_3x MBPO path (K2)", t0)
+
+    t0 = phase("7 SAC baseline CLI (K2)")
+    run_sac()
+    done("7 SAC baseline CLI (K2)", t0)
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "ks_control_period",
+            "route": "cuda",
+            "source": "pdecontrol_tpu_torch/csrc/ks_control_period.cu",
+            "replaces": "pdecontrol_tpu/ops/pallas_ks.py:100",
+            "launches": k1_counts["K1"],
+            "max_abs_err": max(k1_errors),
+            "ms": k1_timings[10][0],
+            "plain_ms": k1_timings[10][1],
+        },
+        {
+            "name": "ks_control_period_limb",
+            "route": "cuda",
+            "source": "pdecontrol_tpu_torch/csrc/ks_control_period_limb.cu",
+            "replaces": "pdecontrol_tpu/ops/pallas_ks_packed.py:213",
+            "launches": k2_counts["K2"],
+            "max_abs_err": max(k2_errors),
+            "ms": k2_timings[10][0],
+            "plain_ms": k2_timings[10][1],
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

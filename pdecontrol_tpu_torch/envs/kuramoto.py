@@ -17,8 +17,13 @@ the batch axis is the vectorisation.  Reference semantics kept
 
 ``solver`` picks the control-period backend: ``"xla"`` is the plain path
 (``ops.kuramoto.ks_control_period``), ``"pallas"`` the CUDA kernel K1
-(``ops.pallas_ks``), which runs its plain version for CPU tensors.  Random
-draws take an explicit ``torch.Generator``.
+(``ops.pallas_ks``) and ``"pallas_packed"`` the bf16-limb kernel K2
+(``ops.pallas_ks_packed``) at ``pallas_precision``; each kernel runs its
+plain version for CPU tensors.  As in the JAX env, an odd flat batch under
+``"pallas_packed"`` goes to K1 in float32, and the reset transient runs
+through K1 under both kernel solvers.  The JAX env's ``pallas_block`` and
+``pallas_interpret`` knobs (TPU tiling, Pallas interpret mode) have no
+counterpart.  Random draws take an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from pdecontrol_tpu_torch.envs.transforms import GaussianForcing
-from pdecontrol_tpu_torch.ops import pallas_ks
+from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed
 from pdecontrol_tpu_torch.ops.kuramoto import (
     DISSIPATION,
     L2CONTROL,
@@ -40,7 +45,7 @@ from pdecontrol_tpu_torch.ops.kuramoto import (
     ks_transient,
 )
 
-SOLVERS = ("xla", "pallas")
+SOLVERS = ("xla", "pallas", "pallas_packed")
 
 
 @dataclasses.dataclass
@@ -83,6 +88,7 @@ class KuramotoSivashinsky:
     xi_rel: Tuple[float, ...] = (0.0, 0.25, 0.5, 0.75)
     transient_time: float = 200.0
     solver: str = "xla"
+    pallas_precision: str = "highest"
 
     @classmethod
     def create(
@@ -100,20 +106,18 @@ class KuramotoSivashinsky:
         legacy_objective: bool = True,
         dtype: torch.dtype = torch.float32,
         solver: str = "xla",
+        pallas_precision: str = "highest",
         transient_time: float = 200.0,
         device: Optional[torch.device] = None,
     ) -> "KuramotoSivashinsky":
         """``transient_time`` (a field only in the JAX package's ``create``)
         shortens the reset transient for small CPU runs."""
-        if solver == "pallas_packed":
-            raise NotImplementedError(
-                "solver='pallas_packed' (the lane-packed bf16-limb kernel K2) "
-                "is not yet ported; use solver='pallas'"
-            )
         if solver not in SOLVERS:
             raise ValueError(f"unknown solver {solver!r}")
+        if pallas_precision not in pallas_ks_packed.PRECISIONS:
+            raise ValueError(f"unknown pallas_precision {pallas_precision!r}")
         if solver != "xla" and dtype != torch.float32:
-            raise ValueError("the pallas solver is float32-only")
+            raise ValueError("the pallas solvers are float32-only")
         xi_rel = (0.0, 0.25, 0.5, 0.75)
         return cls(
             ops=KSOperators.create(n, length, dtype=dtype, device=device),
@@ -133,6 +137,7 @@ class KuramotoSivashinsky:
             xi_rel=xi_rel,
             transient_time=transient_time,
             solver=solver,
+            pallas_precision=pallas_precision,
         )
 
     # ------------------------------------------------------------------ meta
@@ -230,7 +235,9 @@ class KuramotoSivashinsky:
         return int(self.transient_time / self.dt / self.cfg_steps)
 
     def transient(self, u: torch.Tensor, periods: int) -> torch.Tensor:
-        """No-op transient through the configured solver."""
+        """No-op transient through the configured solver; float32 K1 under
+        both kernel solvers (the JAX env runs it in float32 whatever the
+        solver, ``pdecontrol_tpu/envs/kuramoto.py:236``)."""
         return ks_transient(self.ops, u, self.dt, self.cfg_steps, periods,
                             period_fn=self._period_fn)
 
@@ -262,7 +269,7 @@ class KuramotoSivashinsky:
 
     @property
     def _period_fn(self):
-        if self.solver == "pallas":
+        if self.solver in ("pallas", "pallas_packed"):
             return pallas_ks.ks_control_period
         return ks_control_period
 
@@ -276,9 +283,17 @@ class KuramotoSivashinsky:
         batch_shape = u.shape[:-1]
         u2 = u.reshape(-1, self.n).contiguous()
         phi2 = torch.broadcast_to(phi, u.shape).reshape(-1, self.n)
-        u2, r2 = pallas_ks.ks_control_period(
-            self.ops, u2, phi2, self.dt, self.cfg_steps, self.effective_objective
-        )
+        # An odd flat batch cannot be lane-packed on the TPU: the JAX env
+        # sends it to the float32 kernel, dropping the precision.  Kept.
+        if self.solver == "pallas_packed" and u2.shape[0] % 2 == 0:
+            u2, r2 = pallas_ks_packed.ks_control_period_packed(
+                self.ops, u2, phi2, self.dt, self.cfg_steps,
+                self.effective_objective, self.pallas_precision,
+            )
+        else:
+            u2, r2 = pallas_ks.ks_control_period(
+                self.ops, u2, phi2, self.dt, self.cfg_steps, self.effective_objective
+            )
         return u2.reshape(u.shape), r2.reshape(batch_shape)
 
     def step(self, state: EnvState, action: torch.Tensor) -> Tuple[EnvState, StepOut]:
@@ -346,8 +361,8 @@ def make_reset_pool(
     ``decorrelate_periods`` control periods (10 time units, several Lyapunov
     times) until ``pool_size`` states exist — statistically the reference's
     per-reset transient (kuramoto.py:100-116) at an amortised cost.  The
-    transient runs through the env's solver, so under ``solver="pallas"`` on
-    the GPU it is one kernel launch per period.
+    transient runs through ``env.transient``, so under either kernel solver on
+    the GPU it is one K1 launch per period.
     """
     chains = min(chains, pool_size)
     u = env.sample_ic(generator, (chains,))

@@ -81,8 +81,6 @@ def check_ported(cfg: MBPOConfig) -> None:
         todo.append("the profiler trace (--profile_dir)")
     if cfg.use_wandb:
         todo.append("wandb logging")
-    if cfg.env_config.get("solver") == "pallas_packed":
-        todo.append("solver 'pallas_packed' (kernel K2)")
     if cfg.factory not in factories.REGISTRY:
         todo.append(f"factory {cfg.factory!r}")
     if cfg.loss != "MSELoss":

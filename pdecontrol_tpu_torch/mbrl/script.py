@@ -81,8 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--solver", type=str, default=None,
                    choices=["xla", "pallas", "pallas_packed"],
                    help="control-period backend (shorthand for env_config['solver']): "
-                        "'xla' the plain PyTorch path, 'pallas' the CUDA kernel; "
-                        "'pallas_packed' is not yet ported")
+                        "'xla' the plain PyTorch path, 'pallas' the float32 CUDA kernel, "
+                        "'pallas_packed' the bf16-limb CUDA kernel at "
+                        "env_config['pallas_precision']")
     p.add_argument("--num_envs", "--cpus", dest="num_envs", type=int, default=10)
     p.add_argument("--gamma", type=float, default=0.99)
     p.add_argument("--capacity", type=int, default=1_000_000)

@@ -1,7 +1,9 @@
-"""Kernel K1 on an NVIDIA card: built from the checkout, launched, and held
-to its plain PyTorch version (float32, the tolerance of
-tests/test_pallas_ks.py).  Every test here needs a card and skips without
-one.  This file imports no JAX, so that it runs where JAX is not installed:
+"""Kernels K1 and K2 on an NVIDIA card: built from the checkout, launched,
+and held to their plain PyTorch versions (K1 float32 at the tolerance of
+tests/test_pallas_ks.py; K2's limb modes at rtol 1e-4 / atol 1e-4, the
+tolerance of tests/test_torch_packed.py against the JAX kernel body).  Every
+test here needs a card and skips without one.  This file imports no JAX, so
+that it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -57,3 +59,76 @@ def test_kernel_wrapper_raises_instead_of_falling_back(dev):
     u = torch.zeros(2, 48, device=dev)
     with pytest.raises(RuntimeError):
         pallas_ks.ks_control_period(ops32, u, u, 1e-3, 2)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16_3x", "bf16_4x"])
+@pytest.mark.parametrize("objective", ["l2control", "dissipation"])
+@pytest.mark.parametrize("batch", [12, 8, 1])
+def test_limb_kernel_matches_plain_version(dev, precision, objective, batch):
+    from pdecontrol_tpu_torch.ops import pallas_ks_packed
+    from pdecontrol_tpu_torch.ops.kuramoto import KSOperators
+
+    ops = KSOperators.create(64, 22.0, device=dev)
+    # Smooth fields, as on the attractor: on rough ones the derivatives are
+    # large enough that a last-bit difference in the summation order flips
+    # the bf16 rounding of an operand within 20 sub-steps, and one flip
+    # moves one-pass bf16 by ~1e-3 (the limb modes absorb it in the lo limb).
+    rng = np.random.default_rng(batch)
+    f = np.fft.rfft(rng.normal(size=(batch, 64)), axis=-1)
+    f[:, 8:] = 0
+    field = np.fft.irfft(f, n=64, axis=-1)
+    u = torch.as_tensor(3.0 * field / np.abs(field).max(), dtype=torch.float32, device=dev)
+    phi = torch.as_tensor(np.repeat(0.3 * np.sin(2 * np.pi * np.arange(64) / 64)[None],
+                                    batch, 0), dtype=torch.float32, device=dev)
+    before = pallas_ks_packed.launch_count
+    got = pallas_ks_packed.ks_control_period_packed(ops, u, phi, 1e-3, 20, objective,
+                                                    precision)
+    torch.cuda.synchronize()
+    assert pallas_ks_packed.launch_count == before + 1
+    ref = pallas_ks_packed.ks_control_period_packed_plain(ops, u, phi, 1e-3, 20, objective,
+                                                          precision)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+def test_limb_kernel_highest_is_k1_and_odd_env_batches_skip_k2(dev):
+    from pdecontrol_tpu_torch.envs.kuramoto import EnvState, KuramotoSivashinsky
+    from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed
+    from pdecontrol_tpu_torch.ops.kuramoto import KSOperators
+
+    ops = KSOperators.create(64, 22.0, device=dev)
+    u = torch.zeros(4, 64, device=dev)
+    k1, k2 = pallas_ks.launch_count, pallas_ks_packed.launch_count
+    pallas_ks_packed.ks_control_period_packed(ops, u, u, 1e-3, 2, precision="highest")
+    torch.cuda.synchronize()
+    assert (pallas_ks.launch_count, pallas_ks_packed.launch_count) == (k1 + 1, k2)
+
+    env = KuramotoSivashinsky.create(cfg_steps=5, solver="pallas_packed",
+                                     pallas_precision="bf16_3x", device=dev)
+    for shape, launched in (((7,), 0), ((), 0), ((8,), 1)):
+        state = EnvState(u=torch.zeros(shape + (64,), device=dev),
+                         step=torch.zeros(shape, dtype=torch.int32, device=dev))
+        k2 = pallas_ks_packed.launch_count
+        env.step(state, torch.zeros(shape + (1, 4), device=dev))
+        torch.cuda.synchronize()
+        assert pallas_ks_packed.launch_count == k2 + launched, shape
+
+
+def test_limb_kernel_wrapper_raises_instead_of_falling_back(dev):
+    from pdecontrol_tpu_torch.ops import pallas_ks_packed
+    from pdecontrol_tpu_torch.ops.kuramoto import KSOperators
+
+    ops = KSOperators.create(64, 22.0, device=dev)
+    u64 = torch.zeros(4, 64, dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        pallas_ks_packed.ks_control_period_packed(ops, u64, u64, 1e-3, 2, precision="bf16_3x")
+    strided = torch.zeros(64, 8, device=dev).t()
+    with pytest.raises(ValueError):
+        pallas_ks_packed.ks_control_period_packed(ops, strided, strided, 1e-3, 2,
+                                                  precision="bf16_3x")
+    ops48 = KSOperators.create(48, 22.0, device=dev)  # not a multiple of 32
+    u = torch.zeros(2, 48, device=dev)
+    before = pallas_ks_packed.launch_count
+    with pytest.raises(RuntimeError):
+        pallas_ks_packed.ks_control_period_packed(ops48, u, u, 1e-3, 2, precision="bf16_3x")
+    assert pallas_ks_packed.launch_count == before

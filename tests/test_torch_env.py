@@ -104,10 +104,15 @@ def test_reset_pool_runs_the_solver_transient():
 
 
 def test_create_rejects_unported_and_f64_kernel():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tenv.KuramotoSivashinsky.create(solver="pallas_packed")
-    with pytest.raises(ValueError):
-        tenv.KuramotoSivashinsky.create(solver="pallas", dtype=torch.float64)
+    """Every solver of the JAX env exists; the kernel solvers are float32."""
+    assert tenv.SOLVERS == ("xla", "pallas", "pallas_packed")
+    env = tenv.KuramotoSivashinsky.create(solver="pallas_packed", pallas_precision="bf16_3x")
+    assert (env.solver, env.pallas_precision) == ("pallas_packed", "bf16_3x")
+    with pytest.raises(ValueError, match="unknown solver"):
+        tenv.KuramotoSivashinsky.create(solver="pallas_block")
+    for solver in ("pallas", "pallas_packed"):
+        with pytest.raises(ValueError):
+            tenv.KuramotoSivashinsky.create(solver=solver, dtype=torch.float64)
 
 
 def test_gaussian_forcing_matches_jax():

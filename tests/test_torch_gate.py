@@ -1,0 +1,113 @@
+"""The bf16 attractor gate of the port against the JAX package on the CPU:
+``compare`` on the same statistics, ``rollout_stats`` from the same initial
+field (the one the JAX function draws from its key), and the CLI at a tiny
+size."""
+
+import copy
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pdecontrol_tpu.envs.kuramoto import KuramotoSivashinsky as JEnv
+from pdecontrol_tpu.evaluation import bf16_gate as JG
+from pdecontrol_tpu_torch.envs.kuramoto import KuramotoSivashinsky
+from pdecontrol_tpu_torch.evaluation import bf16_gate as G
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+KW = {"n": 32, "cfg_steps": 10}
+
+
+def _jax_stats(seed=0):
+    env = JEnv.create(dtype=jnp.float32, solver="xla", **KW)
+    return JG.rollout_stats(env, jax.random.PRNGKey(seed), batch=8, transient=3, periods=6)
+
+
+def _jax_ic(seed=0):
+    """The initial field ``bf16_gate.rollout_stats`` draws (bf16_gate.py:48-51)."""
+    ku, _ = jax.random.split(jax.random.PRNGKey(seed))
+    return np.array(jax.random.uniform(ku, (8, KW["n"]), minval=-1.0, maxval=1.0,
+                                       dtype=jnp.float32))
+
+
+@pytest.mark.parametrize("solver,precision", [("xla", "highest"), ("pallas", "highest"),
+                                              ("pallas_packed", "highest")])
+def test_rollout_stats_matches_jax_on_the_same_ic(solver, precision):
+    want = _jax_stats()
+    env = KuramotoSivashinsky.create(solver=solver, pallas_precision=precision, **KW)
+    got = G.rollout_stats_from(env, torch.as_tensor(_jax_ic()), transient=3, periods=6)
+    assert got["spectrum"].shape == (KW["n"] // 2 + 1,)
+    for k in ("mean_energy", "mean_ux2", "mean_uxx2"):
+        assert isinstance(got[k], float)
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4)
+    np.testing.assert_allclose(got["spectrum"], want["spectrum"], rtol=1e-4,
+                               atol=1e-4 * want["spectrum"].max())
+
+
+@pytest.mark.parametrize("precision", ["bf16_3x", "bf16_4x"])
+def test_rollout_stats_of_the_limb_modes_are_close_to_float32(precision):
+    """Over 9 periods from one field the limb modes stay on the float32
+    trajectory (no time to decorrelate): the statistics agree to ~1e-4."""
+    ic = torch.as_tensor(_jax_ic())
+    fp32 = G.rollout_stats_from(KuramotoSivashinsky.create(solver="xla", **KW), ic, 3, 6)
+    fast = G.rollout_stats_from(KuramotoSivashinsky.create(
+        solver="pallas_packed", pallas_precision=precision, **KW), ic, 3, 6)
+    verdict = G.compare(fp32, fast, rtol_means=1e-3, rtol_spec=1e-2)
+    assert verdict["ok"], verdict
+
+
+def test_rollout_stats_draws_from_the_generator():
+    env = KuramotoSivashinsky.create(solver="xla", **KW)
+    a = G.rollout_stats(env, torch.Generator().manual_seed(0), 8, 1, 2)
+    b = G.rollout_stats(env, torch.Generator().manual_seed(0), 8, 1, 2)
+    c = G.rollout_stats(env, torch.Generator().manual_seed(1), 8, 1, 2)
+    assert a["mean_energy"] == b["mean_energy"] != c["mean_energy"]
+    np.testing.assert_array_equal(a["spectrum"], b["spectrum"])
+
+
+def _verdict_cases():
+    s = _jax_stats()
+    bad = copy.deepcopy(s)
+    bad["mean_energy"] *= 1.05
+    tail = copy.deepcopy(s)
+    spec = tail["spectrum"].copy()
+    spec[spec < 1e-4 * spec.max()] *= 10.0
+    tail["spectrum"] = spec
+    band = copy.deepcopy(s)
+    band["spectrum"] = s["spectrum"] * 1.2
+    return s, {"same": s, "energy_bias": bad, "tail_only": tail, "band": band}
+
+
+@pytest.mark.parametrize("case", ["same", "energy_bias", "tail_only", "band"])
+def test_compare_matches_jax(case):
+    s, cases = _verdict_cases()
+    other = cases[case]
+    want = JG.compare(s, other, rtol_means=0.02, rtol_spec=0.10)
+    got = G.compare(s, other, rtol_means=0.02, rtol_spec=0.10)
+    assert got == want
+    assert got["ok"] == (case in ("same", "tail_only"))
+
+
+def test_gate_cli_at_a_tiny_size(tmp_path):
+    """``main`` at the full KS size with 2 envs for 1 + 2 periods: too short
+    to decorrelate, so the verdict is a pass; the JSON lands in --output."""
+    out = tmp_path / "verdict.json"
+    rc = G.main(["--batch", "2", "--transient", "1", "--periods", "2",
+                 "--precision", "bf16_3x", "--output", str(out)])
+    verdict = json.loads(out.read_text())
+    assert rc == 0 and verdict["ok"]
+    assert verdict["config"] == {"batch": 2, "transient_periods": 1, "periods": 2,
+                                 "total_agent_steps": 4, "precision": "bf16_3x",
+                                 "device": "cpu"}
+    assert verdict["spectrum"]["bins_compared"] > 0

@@ -33,6 +33,9 @@ def _imports(path):
 def test_sources_found():
     assert len(SOURCES) > 20
     assert (PORT / "csrc" / "ks_control_period.cu").exists()
+    assert (PORT / "csrc" / "ks_control_period_limb.cu").exists()
+    for module in ("ops/pallas_ks_packed.py", "evaluation/bf16_gate.py", "sac/train.py"):
+        assert PORT / module in SOURCES, module
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

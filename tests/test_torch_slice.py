@@ -166,10 +166,38 @@ def test_learn_smoke_through_cli(tmp_path):
         == "pallas"
 
 
+def test_learn_smoke_through_cli_pallas_packed(tmp_path, monkeypatch):
+    """``--solver pallas_packed`` at bf16_3x: ``learn()`` runs through the
+    limb kernel's wrapper (its plain version on the CPU)."""
+    from pdecontrol_tpu_torch.ops import pallas_ks_packed
+
+    precisions = []
+    real = pallas_ks_packed.ks_control_period_packed
+
+    def spy(*args):
+        precisions.append(args[6])
+        return real(*args)
+
+    monkeypatch.setattr(pallas_ks_packed, "ks_control_period_packed", spy)
+    run_dir = str(tmp_path / "run")
+    env_config = {"n": 16, "cfg_steps": 5, "t_max": 0.04, "transient_time": 0.5,
+                  "pallas_precision": "bf16_3x"}
+    assert script.main(SMOKE_ARGS + ["--run_dir", run_dir, "--solver", "pallas_packed",
+                                     "--env_config", json.dumps(env_config)]) == 0
+    assert precisions and set(precisions) == {"bf16_3x"}
+    records = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    assert [r["iteration"] for r in records if "iteration" in r] == list(range(8))
+    for key in ("train_loss", "sac_qf_loss", "eval_return_mean", "collect_reward_mean"):
+        vals = [r[key] for r in records if key in r]
+        assert vals and all(math.isfinite(v) for v in vals), key
+    cfg = json.load(open(os.path.join(run_dir, "config.json")))["env_config"]
+    assert cfg["solver"] == "pallas_packed" and cfg["pallas_precision"] == "bf16_3x"
+
+
 @pytest.mark.parametrize("flags", [
     ["--checkpoint_freq", "200"], ["--resume"], ["--profile_dir", "x"],
     ["--data_parallel", "2"], ["--factory", "KSLatentLSTM"], ["--loss", "KSPhyPDELoss"],
-    ["--env_id", "BurgersEnv-v0"], ["--solver", "pallas_packed"], ["--wandb"],
+    ["--env_id", "BurgersEnv-v0"], ["--model_parallel", "2"], ["--wandb"],
     ["--debug_nans"], ["--coordinator_address", "localhost:1"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
