@@ -7,15 +7,18 @@ Seven phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
-     from the checkout's sources, one nvcc for each, started together;
+     from the checkout's sources, one nvcc for each, started together, and
+     print what ptxas reports of each kernel's registers and spills;
   2. K1 against its plain PyTorch version on the card, float32, both
-     objectives: 20 sub-steps at batch 12 and 8 (rtol 2e-5, atol 2e-6, the
-     tolerance of ``tests/test_pallas_ks.py``); 3 periods x 25 sub-steps
-     through ``env.step`` at batch 8 and for one unbatched [64] state
-     (rtol 3e-5, atol 3e-6, ``tests/test_env_solvers.py``); one full
-     250-sub-step period at batch 10 and 1024 (max abs error printed, held
-     to rtol 1e-4, atol 1e-5); then K1's and the plain version's time per
-     period at batch 10 and 1024 (CUDA events);
+     objectives: 20 sub-steps at batch 12, 8 and 64 on grids of 32, 64 and
+     128 points (rtol 2e-5, atol 2e-6, the tolerance of
+     ``tests/test_pallas_ks.py``); 3 periods x 25 sub-steps through
+     ``env.step`` at batch 8 and for one unbatched [64] state (rtol 3e-5,
+     atol 3e-6, ``tests/test_env_solvers.py``); one full 250-sub-step period
+     at batch 10, 64 and 1024 (max abs error printed, held to rtol 1e-4,
+     atol 1e-5); then the reset pool's set-up time (920 K1 launches at
+     batch 64), and K1's time per period at batch 10, 64 and 1024 (CUDA
+     events), beside the plain version's time and the roofline bound;
   3. the main path — ``pdecontrol_tpu_torch.mbrl.script.main`` with the
      flagship arguments of ``runscripts/mbpo_ks.sh`` and ``--solver pallas``
      for a few iterations (see ``MAIN_ARGS``), then checks that K1 ran
@@ -62,6 +65,18 @@ RUN_DIR_BF16 = os.path.join(HERE, "runs", "chip_smoke_bf16")
 RUN_DIR_SAC = os.path.join(HERE, "runs", "chip_smoke_sac")
 KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# float32 outside the tensor cores, and HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# FLOPs per grid point and sub-step of a control period, by direct stencil.
+# Per RHS evaluation: 21 taps as FMAs (u_xx 7, u_xxxx 9, and the one 5-tap
+# upwind sum that the sign of the stage value picks; 2 FLOPs each, times the
+# limb passes in K2), 8 for the square, the combine and the stage input, and
+# in K2 7 more for the bf16 limbs of the stage value and its square; per
+# sub-step 4 RHS evaluations plus 10 for the RK4 combine and the reward.
+K1_FLOPS = 4 * (2 * 21 + 8) + 10
+K2_FLOPS = {passes: 4 * (2 * 21 * passes + 8 + 7) + 10 for passes in (1, 3, 4)}
 # K2 against its plain version.  The two sum the stencil products in other
 # orders, so the bf16 rounding of an operand can flip on a last-bit
 # difference.  In the limb modes the lo limb absorbs a flip; in one-pass
@@ -152,6 +167,37 @@ def time_period(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def period_bound(b, n, cfg_steps, flops_per_point_step):
+    """``(bound_ms, bound_by)`` of one control period of a ``[b, n]`` batch:
+    the larger of its FLOPs over the fp32 peak and its bytes (u and phi read
+    once, u and the reward written once) over the memory rate."""
+    t_ops = b * n * cfg_steps * flops_per_point_step / PEAK_FP32_FLOPS
+    t_bytes = 4 * (3 * b * n + b) / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_report(source):
+    """One line per kernel of ``source``: registers and spill bytes, as
+    ``nvcc -Xptxas -v`` reported them when the library was built."""
+    import re
+
+    from pdecontrol_tpu_torch.ops import cuda_build
+
+    lines, entry, spill = [], None, ""
+    for line in cuda_build.build_log(source).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            lines.append(f"{entry}: {m.group(1)} registers, {spill}")
+            entry, spill = None, ""
+    return lines
+
+
 def holds(kernel, label, got, ref, rtol, atol, errors):
     """Hold one kernel output to its reference; record the max abs error."""
     import torch
@@ -180,22 +226,31 @@ def build_kernels() -> None:
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         for source, seconds in pool.map(one, KERNEL_SOURCES):
             print(f"   {source}: build seconds {seconds:.2f}", flush=True)
+            for line in ptxas_report(source):
+                print(f"     ptxas {line}", flush=True)
     pallas_ks.build()
     pallas_ks_packed.build()
 
 
 def check_kernel(errors):
-    """Phase 2: K1 against the plain version; returns the timings."""
+    """Phase 2: K1 against the plain version; returns K1's timings."""
     import numpy as np
     import torch
 
-    from pdecontrol_tpu_torch.envs.kuramoto import EnvState, KuramotoSivashinsky
+    from pdecontrol_tpu_torch.envs.kuramoto import (EnvState, KuramotoSivashinsky,
+                                                    make_reset_pool)
     from pdecontrol_tpu_torch.ops import pallas_ks
     from pdecontrol_tpu_torch.ops.kuramoto import KSOperators
 
     dev = torch.device("cuda")
-    ops = KSOperators.create(64, 22.0, dtype=torch.float32, device=dev)
     rng = np.random.default_rng(0)
+
+    def operators(n):
+        # The flagship's grid spacing (L = 22 at 64 points) at every n, so
+        # that dt = 1e-3 stays inside RK4's stability region.
+        return KSOperators.create(n, 22.0 * n / 64, dtype=torch.float32, device=dev)
+
+    ops = operators(64)
 
     def tensor(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
@@ -203,15 +258,17 @@ def check_kernel(errors):
     def compare(label, got, ref, rtol, atol):
         holds("K1", label, got, ref, rtol, atol, errors)
 
-    x = np.arange(64)
     for objective in ("l2control", "dissipation"):
-        for b in (12, 8):
-            u = tensor(rng.uniform(-1, 1, (b, 64)))
-            phi = tensor(np.repeat(0.3 * np.sin(2 * np.pi * x / 64)[None], b, 0))
-            got = pallas_ks.ks_control_period(ops, u, phi, 1e-3, 20, objective)
-            ref = pallas_ks.ks_control_period_plain(ops, u, phi, 1e-3, 20, objective)
-            for name, g, r in zip(("u", "reward"), got, ref):
-                compare(f"{objective} B={b} 20 sub-steps {name}", g, r, 2e-5, 2e-6)
+        for n in (32, 64, 128):
+            ops_n = operators(n)
+            wave = 0.3 * np.sin(2 * np.pi * np.arange(n) / n)[None]
+            for b in (12, 8, 64):
+                u = tensor(rng.uniform(-1, 1, (b, n)))
+                phi = tensor(np.repeat(wave, b, 0))
+                got = pallas_ks.ks_control_period(ops_n, u, phi, 1e-3, 20, objective)
+                ref = pallas_ks.ks_control_period_plain(ops_n, u, phi, 1e-3, 20, objective)
+                for name, g, r in zip(("u", "reward"), got, ref):
+                    compare(f"{objective} n={n} B={b} 20 sub-steps {name}", g, r, 2e-5, 2e-6)
 
         env_k = KuramotoSivashinsky.create(cfg_steps=25, objective=objective,
                                            legacy_objective=False, solver="pallas",
@@ -230,7 +287,7 @@ def check_kernel(errors):
                 compare(label + " obs", ok_.obs, op_.obs, 3e-5, 3e-6)
                 compare(label + " reward", ok_.reward, op_.reward, 3e-5, 3e-6)
 
-        for b in (10, 1024):
+        for b in (10, 64, 1024):
             u = tensor(rng.uniform(-1, 1, (b, 64)))
             phi = tensor(rng.uniform(-0.5, 0.5, (b, 64)))
             got = pallas_ks.ks_control_period(ops, u, phi, 1e-3, 250, objective)
@@ -238,22 +295,39 @@ def check_kernel(errors):
             for name, g, r in zip(("u", "reward"), got, ref):
                 compare(f"{objective} B={b} 250 sub-steps {name}", g, r, 1e-4, 1e-5)
 
+    # The reset pool of every path: 64 chains through 800 + 3 x 40 periods.
+    env = KuramotoSivashinsky.create(solver="pallas", device=dev)
+    before = pallas_ks.launch_count
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    make_reset_pool(env, torch.Generator(device=dev).manual_seed(0), 256)
+    torch.cuda.synchronize()
+    print(f"   reset pool (256 states, {pallas_ks.launch_count - before} K1 launches at "
+          f"B=64): {time.perf_counter() - t:.4f} s", flush=True)
+
     timings = {}
-    for b in (10, 1024):
+    for b in (10, 64, 1024):
         u = tensor(rng.uniform(-1, 1, (b, 64)))
         phi = tensor(rng.uniform(-0.5, 0.5, (b, 64)))
+
+        def kernel():
+            return pallas_ks.ks_control_period(ops, u, phi, 1e-3, 250, "l2control")
+
+        def plain():
+            return pallas_ks.ks_control_period_plain(ops, u, phi, 1e-3, 250, "l2control")
+
         # Plain, kernel, kernel, plain: the two versions alternate.
-        p1 = time_period(lambda: pallas_ks.ks_control_period_plain(
-            ops, u, phi, 1e-3, 250, "l2control"), 3)
-        k1 = time_period(lambda: pallas_ks.ks_control_period(
-            ops, u, phi, 1e-3, 250, "l2control"), 50)
-        k2 = time_period(lambda: pallas_ks.ks_control_period(
-            ops, u, phi, 1e-3, 250, "l2control"), 50)
-        p2 = time_period(lambda: pallas_ks.ks_control_period_plain(
-            ops, u, phi, 1e-3, 250, "l2control"), 3)
-        timings[b] = (min(k1, k2), min(p1, p2))
+        p1 = time_period(plain, 3)
+        k1 = time_period(kernel, 50)
+        k2 = time_period(kernel, 50)
+        p2 = time_period(plain, 3)
+        bound, bound_by = period_bound(b, 64, 250, K1_FLOPS)
+        ms = min(k1, k2)
+        timings[b] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound,
+                      "bound_by": bound_by}
         print(f"   per control period (250 sub-steps) at B={b}: K1 {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.4f} / {p2:.4f} ms", flush=True)
+              f"plain {p1:.4f} / {p2:.4f} ms; bound {bound:.4f} ms ({bound_by}), "
+              f"{100 * bound / ms:.2f}% of it", flush=True)
     return timings
 
 
@@ -370,9 +444,13 @@ def check_limb_kernel(errors, k1_errors):
         k1 = time_period(kernel, 50)
         k2 = time_period(kernel, 50)
         p2 = time_period(plain, 3)
-        timings[b] = (min(k1, k2), min(p1, p2))
+        bound, bound_by = period_bound(b, 64, 250, K2_FLOPS[3])
+        ms = min(k1, k2)
+        timings[b] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound,
+                      "bound_by": bound_by}
         print(f"   per bf16_3x control period (250 sub-steps) at B={b}: K2 {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms", flush=True)
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound {bound:.4f} ms "
+              f"({bound_by}), {100 * bound / ms:.2f}% of it", flush=True)
     return timings
 
 
@@ -563,8 +641,8 @@ def main() -> int:
             "replaces": "pdecontrol_tpu/ops/pallas_ks.py:100",
             "launches": k1_counts["K1"],
             "max_abs_err": max(k1_errors),
-            "ms": k1_timings[10][0],
-            "plain_ms": k1_timings[10][1],
+            **k1_timings[10],
+            "library_ms": None,
         },
         {
             "name": "ks_control_period_limb",
@@ -573,8 +651,8 @@ def main() -> int:
             "replaces": "pdecontrol_tpu/ops/pallas_ks_packed.py:213",
             "launches": k2_counts["K2"],
             "max_abs_err": max(k2_errors),
-            "ms": k2_timings[10][0],
-            "plain_ms": k2_timings[10][1],
+            **k2_timings[10],
+            "library_ms": None,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

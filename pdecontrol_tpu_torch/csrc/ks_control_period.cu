@@ -8,27 +8,44 @@
 // per-sub-step reward on the pre-step state, averaged over the period
 // (l2control: -mean u^2; dissipation: -(mean u_xx^2 + mean u_x^2 + mean u*phi)).
 //
-// What bounds it on this card: latency.  One launch runs 250 sub-steps x 4
-// dependent RHS evaluations; each needs the neighbours' values of the
-// previous stage, so the 1,000 evaluations form one chain of block-level
-// barriers.  A row is 64 floats in and 64 + 1 out per period, and an RHS is
-// ~60 FLOPs per point, so neither bytes nor FLOPs come near the card's
-// limits.  The design therefore keeps everything on chip and pays the chain
-// once per period:
-//   * one launch per control period; each block owns a few rows, one thread
-//     per grid point, and the state lives in a register (plus a shared-memory
-//     copy of the current stage for the neighbours) for all sub-steps;
-//   * direct periodic stencils (u_xx 7 taps, u_xxxx 9 taps, the one-sided
-//     upwinds 5 taps each) instead of the TPU kernel's dense [2N, 4N] matrix,
-//     which would take 128 KB of shared memory and mostly multiply by zero.
-//     The taps are the float32 entries of the port's KSOperators matrices, so
-//     the kernel and the plain path use the same float32 coefficients;
-//   * the reward is a per-row warp-shuffle reduction, accumulated in a
-//     register;
+// The bound.  Per grid point and RHS evaluation the function needs 21
+// stencil taps as FMAs (u_xx 7, u_xxxx 9, and one of the two 5-tap upwind
+// sums, picked by the sign of the stage value; the kernel evaluates both and
+// selects, 5 FMAs more) plus the square, the combine and the stage input,
+// ~50 FLOPs; with the RK4 combine and the reward ~210
+// FLOPs per point and sub-step, so ~3.4 MFLOP per row of 64 points and 250
+// sub-steps, against 772 bytes in and out.  By the roofline the kernel is
+// compute-bound (~51 us at B=1024 on the H100's 67 TFLOP/s of non-tensor
+// fp32).  In practice, at the batches the main path runs (B <= 64 rows), it
+// is latency-bound: a period is one chain of 1,000 dependent RHS
+// evaluations, each of which needs the neighbours' values of the previous
+// stage.
+//
+// The design shortens that chain:
+//   * one launch per control period, one warp per row; lane l holds the
+//     P = n/32 consecutive points [l*P, l*P + P) in registers for all
+//     sub-steps;
+//   * the stencils reach 4 points, so an RHS takes its 8 halo values from
+//     the neighbouring lanes by __shfl_sync (8 shuffles at every P), and
+//     (l + k) & 31 wraps the periodic grid because 32 * P = n.  The halo's
+//     squares are recomputed from the shuffled values, which gives the
+//     owner's bits.  No shared memory, no block barrier: the chain per RHS
+//     is the shuffles plus the longest tap sum (9 FMAs);
+//   * the four tap sums (u_xx 7 taps, u_xxxx 9, the one-sided upwinds of
+//     u^2 5 each) are independent accumulators of each point, for
+//     instruction-level parallelism.  The taps are the float32 entries of
+//     the port's KSOperators matrices, so the kernel and the plain path use
+//     the same float32 coefficients (direct stencils instead of the TPU
+//     kernel's dense [2N, 4N] matrix, which mostly multiplies by zero);
+//   * each lane sums its points' reward terms over all sub-steps in
+//     registers, and one warp reduction per term ends the period (this
+//     reorders the float32 sum of the per-sub-step version);
+//   * a block is one warp, so a launch has one block per row and no block
+//     is partly filled (1, 2 and 4 rows per block ran equally fast);
 //   * all arithmetic is fp32 (no TF32, no bf16).
 //
 // Plain C interface (built with nvcc into a shared library, called through
-// ctypes); the function returns cudaGetLastError() after the launch.
+// ctypes); it returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
@@ -36,7 +53,8 @@
 
 namespace {
 
-constexpr int kThreadsPerBlock = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kReach = 4;  // the widest stencil, u_xxxx, spans -4..4
 
 struct Taps {
   float c2[7];  // u_xx,    offsets -3..3
@@ -45,118 +63,143 @@ struct Taps {
   float bw[5];  // backward upwind of u^2, offsets -4..0
 };
 
-__device__ __forceinline__ int wrap(int j, int n) {
-  j += (j < 0) ? n : 0;
-  j -= (j >= n) ? n : 0;
-  return j;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
   return v;
 }
 
-// One RHS evaluation at stage value v of grid point i.  The caller's stage
-// value and its square are published to shared memory, read back by the
-// neighbours, and the trailing barrier protects them until every thread of
-// the block has read them.
-__device__ __forceinline__ float rhs(float v, float phi, float* v_row, float* sq_row, int i,
-                                     int n, const Taps& t, float* u_x, float* u_xx) {
-  v_row[i] = v;
-  sq_row[i] = v * v;
-  __syncthreads();
-  float d2 = 0.f, d4 = 0.f, fwd = 0.f, bwd = 0.f;
+// One RHS evaluation at the stage values v[P] of this lane's points.  w is
+// the window [4 halo | P own | 4 halo] of stage values, sq their squares.
+// Writes the RHS of each point to k, and its upwind u_x and u_xx to ux,
+// uxx (read only for the reward of the first stage).
+template <int P>
+__device__ __forceinline__ void rhs(const float (&v)[P], const float (&phi)[P], int lane,
+                                    const Taps& t, float (&k)[P], float (&ux)[P],
+                                    float (&uxx)[P]) {
+  float w[P + 2 * kReach];
+  float sq[P + 2 * kReach];
 #pragma unroll
-  for (int d = -3; d <= 3; ++d) d2 += t.c2[d + 3] * v_row[wrap(i + d, n)];
+  for (int p = 0; p < P; ++p) w[kReach + p] = v[p];
+  // Halo point h (1..4) to the left is point lP - h, held by lane l - q at
+  // index qP - h, where q = ceil(h / P); to the right, point lP + P - 1 + h
+  // is held by lane l + q at index h - 1 - (q - 1)P.  They are fetched in
+  // the order the tap sums consume them, leftmost first.
 #pragma unroll
-  for (int d = -4; d <= 4; ++d) d4 += t.c4[d + 4] * v_row[wrap(i + d, n)];
+  for (int h = kReach; h >= 1; --h) {
+    const int q = (h + P - 1) / P;
+    w[kReach - h] = __shfl_sync(kFullMask, v[q * P - h], (lane - q) & 31);
+  }
 #pragma unroll
-  for (int d = 0; d <= 4; ++d) fwd += t.fw[d] * sq_row[wrap(i + d, n)];
+  for (int h = 1; h <= kReach; ++h) {
+    const int q = (h + P - 1) / P;
+    w[kReach + P - 1 + h] = __shfl_sync(kFullMask, v[h - 1 - (q - 1) * P], (lane + q) & 31);
+  }
 #pragma unroll
-  for (int d = -4; d <= 0; ++d) bwd += t.bw[d + 4] * sq_row[wrap(i + d, n)];
-  __syncthreads();
-  const float ux = (v < 0.f) ? fwd : bwd;
-  *u_x = ux;
-  *u_xx = d2;
-  return -d4 - d2 - 0.5f * ux + phi;
+  for (int j = 0; j < P + 2 * kReach; ++j) sq[j] = __fmul_rn(w[j], w[j]);
+
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int c = kReach + p;
+    float d2 = 0.f, d4 = 0.f, fwd = 0.f, bwd = 0.f;
+#pragma unroll
+    for (int d = -3; d <= 3; ++d) d2 += t.c2[d + 3] * w[c + d];
+#pragma unroll
+    for (int d = -4; d <= 4; ++d) d4 += t.c4[d + 4] * w[c + d];
+#pragma unroll
+    for (int d = 0; d <= 4; ++d) fwd += t.fw[d] * sq[c + d];
+#pragma unroll
+    for (int d = -4; d <= 0; ++d) bwd += t.bw[d + 4] * sq[c + d];
+    const float u_x = (v[p] < 0.f) ? fwd : bwd;
+    ux[p] = u_x;
+    uxx[p] = d2;
+    k[p] = -d4 - d2 - 0.5f * u_x + phi[p];
+  }
 }
 
-template <bool kDissipation>
-__global__ void __launch_bounds__(kThreadsPerBlock)
+template <int P, bool kDissipation>
+__global__ void __launch_bounds__(32)
 ks_control_period_kernel(const float* __restrict__ u_in, const float* __restrict__ phi_in,
-                         float* __restrict__ u_out, float* __restrict__ rew_out, int batch,
-                         int n, int rows_per_block, float dt, int cfg_steps, Taps taps) {
-  extern __shared__ float smem[];
-  const int local_row = threadIdx.x / n;
-  const int i = threadIdx.x - local_row * n;
-  const int row = blockIdx.x * rows_per_block + local_row;
-  const bool active = row < batch;
-  const int warps_per_row = n / 32;
-  const int warp_in_row = i / 32;
-  const int lane = threadIdx.x & 31;
+                         float* __restrict__ u_out, float* __restrict__ rew_out, float dt,
+                         int cfg_steps, Taps taps) {
+  constexpr int n = 32 * P;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
 
-  float* v_row = smem + local_row * n;
-  float* sq_row = smem + rows_per_block * n + local_row * n;
-  // Per-warp partial sums of the reward terms: [rows][warps_per_row][3].
-  float* red = smem + 2 * rows_per_block * n + local_row * warps_per_row * 3;
-
-  // Rows past the batch (the last block's tail) compute on zeros and write
-  // nothing; they still take part in every barrier.
-  float u = active ? u_in[row * n + i] : 0.f;
-  const float phi = active ? phi_in[row * n + i] : 0.f;
-  const float inv_n = 1.0f / static_cast<float>(n);
-  float acc = 0.f;
-
-  for (int s = 0; s < cfg_steps; ++s) {
-    float ux, uxx, ux_, uxx_;
-    const float k1 = rhs(u, phi, v_row, sq_row, i, n, taps, &ux, &uxx);
-
-    // Reward on the pre-step state, reduced over the row.
-    float a, b = 0.f, c = 0.f;
-    if (kDissipation) {
-      a = warp_sum(uxx * uxx);
-      b = warp_sum(ux * ux);
-      c = warp_sum(u * phi);
-    } else {
-      a = warp_sum(u * u);
-    }
-    if (lane == 0) {
-      red[warp_in_row * 3 + 0] = a;
-      red[warp_in_row * 3 + 1] = b;
-      red[warp_in_row * 3 + 2] = c;
-    }
-    __syncthreads();
-    if (i == 0) {
-      float sa = 0.f, sb = 0.f, sc = 0.f;
-      for (int w = 0; w < warps_per_row; ++w) {
-        sa += red[w * 3 + 0];
-        sb += red[w * 3 + 1];
-        sc += red[w * 3 + 2];
-      }
-      acc += kDissipation ? -(sa * inv_n + sb * inv_n + sc * inv_n) : -(sa * inv_n);
-    }
-    // ``red`` is rewritten only after the next sub-step's first RHS, whose
-    // two barriers follow this read.
-
-    const float k2 = rhs(u + dt * k1 / 2.0f, phi, v_row, sq_row, i, n, taps, &ux_, &uxx_);
-    const float k3 = rhs(u + dt * k2 / 2.0f, phi, v_row, sq_row, i, n, taps, &ux_, &uxx_);
-    const float k4 = rhs(u + dt * k3, phi, v_row, sq_row, i, n, taps, &ux_, &uxx_);
-    u = u + dt * (k1 + 2.0f * k2 + 2.0f * k3 + k4) / 6.0f;
+  const float* u_row = u_in + static_cast<size_t>(row) * n + lane * P;
+  const float* phi_row = phi_in + static_cast<size_t>(row) * n + lane * P;
+  float u[P], phi[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    u[p] = u_row[p];
+    phi[p] = phi_row[p];
   }
 
-  if (active) {
-    u_out[row * n + i] = u;
-    if (i == 0) rew_out[row] = acc / static_cast<float>(cfg_steps);
+  // This lane's reward terms, summed over its points and all sub-steps:
+  // l2control a = u^2; dissipation a = u_xx^2, b = u_x^2, c = u*phi.
+  float a = 0.f, b = 0.f, c = 0.f;
+  float k1[P], k2[P], k3[P], k4[P], ux[P], uxx[P], stage[P];
+
+  for (int s = 0; s < cfg_steps; ++s) {
+    rhs<P>(u, phi, lane, taps, k1, ux, uxx);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (kDissipation) {
+        a += uxx[p] * uxx[p];
+        b += ux[p] * ux[p];
+        c += u[p] * phi[p];
+      } else {
+        a += u[p] * u[p];
+      }
+      stage[p] = u[p] + dt * k1[p] / 2.0f;
+    }
+    rhs<P>(stage, phi, lane, taps, k2, ux, uxx);
+#pragma unroll
+    for (int p = 0; p < P; ++p) stage[p] = u[p] + dt * k2[p] / 2.0f;
+    rhs<P>(stage, phi, lane, taps, k3, ux, uxx);
+#pragma unroll
+    for (int p = 0; p < P; ++p) stage[p] = u[p] + dt * k3[p];
+    rhs<P>(stage, phi, lane, taps, k4, ux, uxx);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      u[p] = u[p] + dt * (k1[p] + 2.0f * k2[p] + 2.0f * k3[p] + k4[p]) / 6.0f;
+  }
+
+  float* u_dst = u_out + static_cast<size_t>(row) * n + lane * P;
+#pragma unroll
+  for (int p = 0; p < P; ++p) u_dst[p] = u[p];
+
+  const float inv_n = 1.0f / static_cast<float>(n);
+  float total;
+  if (kDissipation) {
+    const float sa = warp_sum(a), sb = warp_sum(b), sc = warp_sum(c);
+    total = -(sa * inv_n + sb * inv_n + sc * inv_n);
+  } else {
+    total = -(warp_sum(a) * inv_n);
+  }
+  if (lane == 0) rew_out[row] = total / static_cast<float>(cfg_steps);
+}
+
+template <int P>
+void launch(const float* u, const float* phi, float* u_out, float* rew_out, int batch, float dt,
+            int cfg_steps, bool dissipation, const Taps& taps, cudaStream_t stream) {
+  if (dissipation) {
+    ks_control_period_kernel<P, true><<<batch, 32, 0, stream>>>(u, phi, u_out, rew_out, dt,
+                                                                 cfg_steps, taps);
+  } else {
+    ks_control_period_kernel<P, false><<<batch, 32, 0, stream>>>(u, phi, u_out, rew_out, dt,
+                                                                  cfg_steps, taps);
   }
 }
 
 }  // namespace
 
+// One control period of a [batch, n] float32 batch.  n is a multiple of 32
+// up to 256.
 extern "C" int ks_control_period_f32(const void* u, const void* phi, void* u_out, void* rew_out,
                                      int batch, int n, float dt, int cfg_steps, int dissipation,
                                      const void* taps26, void* stream) {
-  if (n < 9 || n % 32 != 0 || n > kThreadsPerBlock || cfg_steps < 1) {
+  if (n < 32 || n % 32 != 0 || n > 256 || cfg_steps < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0) return 0;
@@ -164,21 +207,21 @@ extern "C" int ks_control_period_f32(const void* u, const void* phi, void* u_out
   static_assert(sizeof(Taps) == 26 * sizeof(float), "Taps must hold 26 packed floats");
   std::memcpy(&taps, taps26, sizeof(Taps));
 
-  const int rows_per_block = kThreadsPerBlock / n;
-  const int blocks = (batch + rows_per_block - 1) / rows_per_block;
-  const int threads = rows_per_block * n;
-  const size_t smem = sizeof(float) * (2 * rows_per_block * n + rows_per_block * (n / 32) * 3);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* uu = static_cast<const float*>(u);
   const float* pp = static_cast<const float*>(phi);
   float* uo = static_cast<float*>(u_out);
   float* ro = static_cast<float*>(rew_out);
-  if (dissipation) {
-    ks_control_period_kernel<true><<<blocks, threads, smem, s>>>(
-        uu, pp, uo, ro, batch, n, rows_per_block, dt, cfg_steps, taps);
-  } else {
-    ks_control_period_kernel<false><<<blocks, threads, smem, s>>>(
-        uu, pp, uo, ro, batch, n, rows_per_block, dt, cfg_steps, taps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool dis = dissipation != 0;
+  switch (n / 32) {
+    case 1: launch<1>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s); break;
+    case 2: launch<2>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s); break;
+    case 3: launch<3>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s); break;
+    case 4: launch<4>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s); break;
+    case 5: launch<5>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s); break;
+    case 6: launch<6>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s); break;
+    case 7: launch<7>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s); break;
+    default: launch<8>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

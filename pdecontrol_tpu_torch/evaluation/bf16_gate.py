@@ -16,7 +16,9 @@ and compares
   1e-4 of the peak power.
 
 Exit status 0 means within tolerance; the verdict JSON goes to stdout and,
-with ``--output``, to a file.  On the GPU (the defaults are the JAX gate's):
+with ``--output``, to a file.  It runs on the GPU, and stops if there is
+none, unless ``--platform cpu`` asks for the CPU (the defaults are the JAX
+gate's):
 
     python -m pdecontrol_tpu_torch.evaluation.bf16_gate --precision bf16_3x
 """
@@ -26,13 +28,15 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
 
 from pdecontrol_tpu_torch.envs.kuramoto import EnvState, KuramotoSivashinsky
 from pdecontrol_tpu_torch.ops.kuramoto import ks_derivatives
+from pdecontrol_tpu_torch.utils.device import (
+    add_platform_argument, entry_device, platform_device)
 
 
 @torch.no_grad()
@@ -101,11 +105,12 @@ def compare(fp32: Dict, bf16: Dict, rtol_means: float, rtol_spec: float) -> Dict
 
 def run_gate(batch: int = 512, transient: int = 100, periods: int = 400,
              rtol_means: float = 0.02, rtol_spec: float = 0.10,
-             seed: int = 0, precision: str = "bf16_4x") -> Dict:
+             seed: int = 0, precision: str = "bf16_4x",
+             device: Union[None, str, torch.device] = None) -> Dict:
     """The gate: the float32 plain solver against ``pallas_packed`` at
-    ``precision``, both from the same initial batch, on the GPU when there
-    is one."""
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    ``precision``, both from the same initial batch, on ``device`` (``None``:
+    the GPU, which must exist)."""
+    device = entry_device(device)
     envs = {
         "fp32": KuramotoSivashinsky.create(solver="xla", device=device),
         "fast": KuramotoSivashinsky.create(solver="pallas_packed",
@@ -137,11 +142,12 @@ def main(argv=None) -> int:
     p.add_argument("--precision", type=str, default="bf16_4x",
                    choices=("bf16", "bf16_3x", "bf16_4x"))
     p.add_argument("--output", type=str, default=None)
+    add_platform_argument(p)
     args = p.parse_args(argv)
 
     verdict = run_gate(args.batch, args.transient, args.periods,
                        args.rtol_means, args.rtol_spec, args.seed,
-                       args.precision)
+                       args.precision, platform_device(args.platform))
     blob = json.dumps(verdict, indent=2)
     print(blob)
     if args.output:

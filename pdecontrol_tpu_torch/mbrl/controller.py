@@ -49,6 +49,7 @@ from pdecontrol_tpu_torch.train.losses import make_loss
 from pdecontrol_tpu_torch.train.schedulers import Scheduler
 from pdecontrol_tpu_torch.train.trainer import SurrogateTrainer, TrainConfig
 from pdecontrol_tpu_torch.utils import profiling
+from pdecontrol_tpu_torch.utils.device import entry_device
 from pdecontrol_tpu_torch.utils.logging import MetricsLogger
 
 ENVS = {
@@ -94,11 +95,7 @@ class PDEModelBasedController:
                  device: Optional[torch.device] = None):
         check_ported(config)
         self.config = cfg = config
-        self.device = torch.device(
-            device if device is not None
-            else ("cuda" if torch.cuda.is_available() else "cpu")
-        )
-        dev = self.device
+        self.device = dev = entry_device(device)
         torch.manual_seed(cfg.seed)  # module initialisation
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 

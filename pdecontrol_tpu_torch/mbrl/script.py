@@ -19,7 +19,8 @@ defaults; components are chosen by registry name.  Run e.g.:
             "steptype": "iteration", "start": 0, "stop": 200, "vmin": 3,
             "vmax": 7}'
 
-It runs on the GPU when one is present (``--platform cpu`` forces the CPU).
+It runs on the GPU, and stops if there is none, unless ``--platform cpu``
+asks for the CPU.
 ``--no_fuse_iteration``, ``--no_fuse_fit`` and
 ``--sequential_member_training`` are accepted and change nothing: the port
 always runs the unfused phase order, the per-epoch fit and member-by-member
@@ -35,13 +36,13 @@ import traceback
 
 from pdecontrol_tpu_torch.mbrl.config import MBPOConfig
 from pdecontrol_tpu_torch.models.factories import REGISTRY
+from pdecontrol_tpu_torch.utils.device import add_platform_argument, platform_device
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--platform", type=str, default=None, choices=["cpu", "gpu", "cuda"],
-                   help="device to run on (default: the GPU if present)")
+    add_platform_argument(p)
     p.add_argument("--debug_nans", action="store_true", help="not yet ported")
     # Logging & evaluation
     p.add_argument("--project", type=str, default=None)
@@ -205,11 +206,10 @@ def main(argv=None) -> int:
                                   else "the multi-process runtime (--coordinator_address)")
         )
     config = config_from_args(args)
-    device = None if args.platform is None else ("cpu" if args.platform == "cpu" else "cuda")
 
     from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController
 
-    mbpo = PDEModelBasedController(config, device=device)
+    mbpo = PDEModelBasedController(config, device=platform_device(args.platform))
     try:
         mbpo.learn()
     except Exception:

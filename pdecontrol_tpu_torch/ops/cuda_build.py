@@ -4,7 +4,9 @@ Each kernel in ``pdecontrol_tpu_torch/csrc/`` has a plain C interface.  It
 is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/<hash>/`` at the root of the checkout, keyed by a hash of
 the source and the flags, so an edit rebuilds and an unchanged tree reuses
-the library.  Nothing here runs when a module is imported.
+the library.  What nvcc prints (with ``-Xptxas -v``, each kernel's
+registers, shared memory and spills) is kept beside the library.  Nothing
+here runs when a module is imported.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -66,8 +68,14 @@ def build(source: str) -> Path:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) for {source}:\n{proc.stdout}{proc.stderr}"
         )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_log(source: str) -> str:
+    """What nvcc printed when it built ``csrc/<source>``."""
+    return build(source).with_suffix(".log").read_text()
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,7 +7,7 @@ period and returns ``(u_next [B, N], reward [B])``, as
 
   * for a tensor on the GPU it launches the CUDA kernel
     ``csrc/ks_control_period.cu`` (built at first use, one launch per
-    period) or raises;
+    period, one warp per row) or raises;
   * for a tensor on the CPU it runs ``ks_control_period_plain``, this
     module's plain PyTorch version of the same arithmetic (the TPU kernel's
     ``[u | u^2] @ W`` form with the block-diagonal ``fused_stencil_matrix``).

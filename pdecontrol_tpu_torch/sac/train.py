@@ -13,8 +13,8 @@ uniform replay batches; a policy evaluation every ``--eval_freq`` env steps.
 
 The JAX trainer fuses ``--chunk`` env steps into one jitted program; the
 port runs them as an eager loop, and ``--chunk`` is the number of env steps
-between two log records.  It runs on the GPU when one is present
-(``--platform cpu`` forces the CPU).
+between two log records.  It runs on the GPU, and stops if there is none,
+unless ``--platform cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -31,14 +31,15 @@ from pdecontrol_tpu_torch.data import replay as R
 from pdecontrol_tpu_torch.data.types import Sample
 from pdecontrol_tpu_torch.mbrl.transform_sets import ControllerTransforms
 from pdecontrol_tpu_torch.sac.sac import SAC, SACConfig
+from pdecontrol_tpu_torch.utils.device import (
+    add_platform_argument, entry_device, platform_device)
 from pdecontrol_tpu_torch.utils.logging import MetricsLogger
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--platform", type=str, default=None, choices=["cpu", "gpu", "cuda"],
-                   help="device to run on (default: the GPU if present)")
+    add_platform_argument(p)
     p.add_argument("--debug_nans", action="store_true", help="not yet ported")
     p.add_argument("--run_dir", type=str, default="runs/sac")
     p.add_argument("--env_id", type=str, default="KuramotoSivashinskyEnv-v0")
@@ -72,10 +73,7 @@ class SACTrainer:
         from pdecontrol_tpu_torch.mbrl.controller import ENVS
 
         self.args = args
-        self.device = dev = torch.device(
-            device if device is not None
-            else ("cuda" if torch.cuda.is_available() else "cpu")
-        )
+        self.device = dev = entry_device(device)
         torch.manual_seed(args.seed)  # network initialisation
         self.gen = torch.Generator(device=dev).manual_seed(args.seed)
         env_cls, make_pool = ENVS[args.env_id]
@@ -188,8 +186,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.debug_nans:
         raise NotImplementedError("not yet ported: --debug_nans")
-    device = None if args.platform is None else ("cpu" if args.platform == "cpu" else "cuda")
-    trainer = SACTrainer(args, device=device)
+    trainer = SACTrainer(args, device=platform_device(args.platform))
     logger = MetricsLogger(args.run_dir, config=vars(args))
     try:
         trainer.learn(logger)

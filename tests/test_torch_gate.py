@@ -103,7 +103,7 @@ def test_gate_cli_at_a_tiny_size(tmp_path):
     """``main`` at the full KS size with 2 envs for 1 + 2 periods: too short
     to decorrelate, so the verdict is a pass; the JSON lands in --output."""
     out = tmp_path / "verdict.json"
-    rc = G.main(["--batch", "2", "--transient", "1", "--periods", "2",
+    rc = G.main(["--platform", "cpu", "--batch", "2", "--transient", "1", "--periods", "2",
                  "--precision", "bf16_3x", "--output", str(out)])
     verdict = json.loads(out.read_text())
     assert rc == 0 and verdict["ok"]
