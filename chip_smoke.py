@@ -24,10 +24,13 @@ Seven phases, each timed:
      for a few iterations (see ``MAIN_ARGS``), then checks that K1 ran
      during the run, that every logged loss and return is finite and that
      ``metrics.jsonl`` exists;
-  4. K2 against its plain PyTorch version on the card (see
-     ``check_limb_kernel``), for ``bf16``, ``bf16_3x`` and ``bf16_4x`` and
-     both objectives, on smooth fields; then K2's and the plain version's
-     time per period for ``bf16_3x`` at batch 10 and 1024;
+  4. K2 (one warp per row, the limbs' halo by warp shuffles) against its
+     plain PyTorch version on the card (see ``check_limb_kernel``), for
+     ``bf16``, ``bf16_3x`` and ``bf16_4x`` and both objectives, on smooth
+     fields on grids of 32 to 256 points (one-pass ``bf16`` up to 128);
+     then K2's and the plain version's time per period for ``bf16_3x`` at
+     batch 10, 64 and 1024 and for ``bf16_4x`` at batch 10, beside the
+     roofline bound;
   5. the attractor gate (``pdecontrol_tpu_torch.evaluation.bf16_gate``) at
      full size: one float32 run of 512 envs x 400 periods after 100,
      compared with a ``bf16_3x`` and a ``bf16_4x`` run; both verdicts must
@@ -65,24 +68,30 @@ RUN_DIR_BF16 = os.path.join(HERE, "runs", "chip_smoke_bf16")
 RUN_DIR_SAC = os.path.join(HERE, "runs", "chip_smoke_sac")
 KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
-# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
-# float32 outside the tensor cores, and HBM3.
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
+# dense): float32 outside the tensor cores, bf16 products with float32
+# accumulation on the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-# FLOPs per grid point and sub-step of a control period, by direct stencil.
-# Per RHS evaluation: 21 taps as FMAs (u_xx 7, u_xxxx 9, and the one 5-tap
-# upwind sum that the sign of the stage value picks; 2 FLOPs each, times the
-# limb passes in K2), 8 for the square, the combine and the stage input, and
-# in K2 7 more for the bf16 limbs of the stage value and its square; per
-# sub-step 4 RHS evaluations plus 10 for the RK4 combine and the reward.
-K1_FLOPS = 4 * (2 * 21 + 8) + 10
-K2_FLOPS = {passes: 4 * (2 * 21 * passes + 8 + 7) + 10 for passes in (1, 3, 4)}
+# FLOPs per grid point and sub-step of a control period, by direct stencil,
+# as (float32 FLOPs, bf16-product FLOPs).  Per RHS evaluation: 21 taps as
+# FMAs (u_xx 7, u_xxxx 9, and the one 5-tap upwind sum that the sign of the
+# stage value picks; 2 FLOPs each), 8 for the square, the combine and the
+# stage input, and in K2 7 more for the bf16 limbs of the stage value and
+# its square; per sub-step 4 RHS evaluations plus 10 for the RK4 combine
+# and the reward.  K1's taps are float32 products; K2's are bf16 x bf16
+# products accumulated in float32, one set per limb pass.
+K1_FLOPS = (4 * (2 * 21 + 8) + 10, 0)
+K2_FLOPS = {passes: (4 * (8 + 7) + 10, 4 * 2 * 21 * passes) for passes in (1, 3, 4)}
 # K2 against its plain version.  The two sum the stencil products in other
 # orders, so the bf16 rounding of an operand can flip on a last-bit
 # difference.  In the limb modes the lo limb absorbs a flip; in one-pass
 # bf16 a flip moves u by ~1e-3, and on an H100 its error grows from <1e-6
 # at 25 sub-steps to ~2e-3 at 75 and ~9e-3 at 250.  So bf16 is held over
-# periods of at most 25 sub-steps, each from the state both sides start at.
+# periods of at most 25 sub-steps, each from the state both sides start at,
+# and on fixed fields: on another smooth field at batch 64 one operand
+# flipped within 20 sub-steps, and u moved by 5.8e-3.
 K2_TOL = (1e-4, 1e-4)
 
 # runscripts/mbpo_ks.sh with --solver pallas.  Cut from the flagship:
@@ -169,9 +178,12 @@ def time_period(fn, reps: int) -> float:
 
 def period_bound(b, n, cfg_steps, flops_per_point_step):
     """``(bound_ms, bound_by)`` of one control period of a ``[b, n]`` batch:
-    the larger of its FLOPs over the fp32 peak and its bytes (u and phi read
-    once, u and the reward written once) over the memory rate."""
-    t_ops = b * n * cfg_steps * flops_per_point_step / PEAK_FP32_FLOPS
+    the larger of its operations (``(fp32, bf16)`` FLOPs per point and
+    sub-step, each type over its own peak, the two times added) and its
+    bytes (u and phi read once, u and the reward written once) over the
+    memory rate."""
+    fp32, bf16 = flops_per_point_step
+    t_ops = b * n * cfg_steps * (fp32 / PEAK_FP32_FLOPS + bf16 / PEAK_BF16_FLOPS)
     t_bytes = 4 * (3 * b * n + b) / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -331,32 +343,37 @@ def check_kernel(errors):
     return timings
 
 
-def smooth_fields(rng, b, scale, modes=8):
-    """``b`` smooth periodic rows of 64 points (the lowest ``modes``
+def smooth_fields(rng, b, scale, n=64, modes=8):
+    """``b`` smooth periodic rows of ``n`` points (the lowest ``modes``
     wavenumbers, as on the KS attractor), max |u| = ``scale``."""
     import numpy as np
 
-    f = np.fft.rfft(rng.normal(size=(b, 64)), axis=-1)
+    f = np.fft.rfft(rng.normal(size=(b, n)), axis=-1)
     f[:, modes:] = 0
-    u = np.fft.irfft(f, n=64, axis=-1)
+    u = np.fft.irfft(f, n=n, axis=-1)
     return (u / np.abs(u).max() * scale).astype(np.float32)
 
 
 def check_limb_kernel(errors, k1_errors):
     """Phase 4: K2 against its plain version, on smooth fields with
-    |u| <= 3 (the attractor's range), at rtol/atol ``K2_TOL``:
+    |u| <= 3 (the attractor's range) at the flagship spacing (L = 22 n/64),
+    at rtol/atol ``K2_TOL``:
 
-      * 20 sub-steps at batch 12 and 8, every limb mode, both objectives;
+      * 20 sub-steps at batch 1, 12, 8 and 64 on 64 points and at batch 8
+        on 32 and 128 points, every limb mode, both objectives, and for
+        ``bf16_3x`` and ``bf16_4x`` also at batch 8 on 96 and 256 points
+        (1 to 8 points per lane: every halo case);
       * 3 control periods x 25 sub-steps through ``env.step`` at batch 8
         (K2; each period held from the state both sides start it from), at
         batch 7 and for one unbatched state (odd flat batches go to K1 in
         float32: no K2 launch, held to K1's plain version at 3e-5 / 3e-6,
         and counted with K1's errors);
-      * one 250-sub-step period at batch 10 and 1024 for ``bf16_3x`` and
-        ``bf16_4x`` (one-pass ``bf16`` is held at 20 sub-steps only: its
-        rounding flips add up over a full period).
+      * one 250-sub-step period at batch 10, 64 and 1024 for ``bf16_3x``
+        and ``bf16_4x`` (one-pass ``bf16`` is held at 20 sub-steps only:
+        its rounding flips add up over a full period).
 
-    Returns K2's and the plain version's time per ``bf16_3x`` period."""
+    Returns K2's and the plain version's time per period, keyed by
+    ``(precision, batch)``."""
     import numpy as np
     import torch
 
@@ -365,11 +382,23 @@ def check_limb_kernel(errors, k1_errors):
     from pdecontrol_tpu_torch.ops.kuramoto import KSOperators
 
     dev = torch.device("cuda")
-    ops = KSOperators.create(64, 22.0, dtype=torch.float32, device=dev)
+
+    def operators(n):
+        return KSOperators.create(n, 22.0 * n / 64, dtype=torch.float32, device=dev)
+
+    ops = operators(64)
     rng = np.random.default_rng(1)
+    # The grids of 96 and 256 points draw from a generator of their own, so
+    # that the other cases keep the fields they have been held on: one-pass
+    # bf16 is held only on fields where no rounding flips (see K2_TOL), and
+    # drawn in another order, one field at batch 64 flipped.
+    rng_wide = np.random.default_rng(2)
 
     def tensor(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def fields(b, n=64, gen=rng):
+        return tensor(smooth_fields(gen, b, 3.0, n)), tensor(smooth_fields(gen, b, 0.5, n))
 
     def compare(label, got, ref, kernel="K2", tol=K2_TOL):
         holds(kernel, label, got, ref, tol[0], tol[1], errors if kernel == "K2" else k1_errors)
@@ -377,13 +406,20 @@ def check_limb_kernel(errors, k1_errors):
     for precision in LIMB_MODES:
         for objective in ("l2control", "dissipation"):
             tag = f"{precision} {objective}"
-            for b in (12, 8):
-                u, phi = tensor(smooth_fields(rng, b, 3.0)), tensor(smooth_fields(rng, b, 0.5))
-                got = K.ks_control_period_packed(ops, u, phi, 1e-3, 20, objective, precision)
-                ref = K.ks_control_period_packed_plain(ops, u, phi, 1e-3, 20, objective,
+            cases = ((64, 1), (64, 12), (64, 8), (64, 64), (32, 8), (128, 8))
+            if precision != "bf16":
+                # One-pass bf16 flipped an operand on this generator's field
+                # at n = 256 (7.9e-4 after 20 sub-steps); it is held at
+                # n = 96 and 256 by tests/test_torch_cuda.py.
+                cases += ((96, 8), (256, 8))
+            for n, b in cases:
+                ops_n = operators(n)
+                u, phi = fields(b, n, rng_wide if n in (96, 256) else rng)
+                got = K.ks_control_period_packed(ops_n, u, phi, 1e-3, 20, objective, precision)
+                ref = K.ks_control_period_packed_plain(ops_n, u, phi, 1e-3, 20, objective,
                                                        precision)
                 for name, g, r in zip(("u", "reward"), got, ref):
-                    compare(f"{tag} B={b} 20 sub-steps {name}", g, r)
+                    compare(f"{tag} n={n} B={b} 20 sub-steps {name}", g, r)
 
             env = KuramotoSivashinsky.create(cfg_steps=25, objective=objective,
                                              legacy_objective=False, solver="pallas_packed",
@@ -420,8 +456,8 @@ def check_limb_kernel(errors, k1_errors):
 
             if precision == "bf16":
                 continue
-            for b in (10, 1024):
-                u, phi = tensor(smooth_fields(rng, b, 3.0)), tensor(smooth_fields(rng, b, 0.5))
+            for b in (10, 64, 1024):
+                u, phi = fields(b)
                 got = K.ks_control_period_packed(ops, u, phi, 1e-3, 250, objective, precision)
                 ref = K.ks_control_period_packed_plain(ops, u, phi, 1e-3, 250, objective,
                                                        precision)
@@ -429,27 +465,27 @@ def check_limb_kernel(errors, k1_errors):
                     compare(f"{tag} B={b} 250 sub-steps {name}", g, r)
 
     timings = {}
-    for b in (10, 1024):
-        u, phi = tensor(smooth_fields(rng, b, 3.0)), tensor(smooth_fields(rng, b, 0.5))
+    for precision, b in (("bf16_3x", 10), ("bf16_3x", 64), ("bf16_3x", 1024), ("bf16_4x", 10)):
+        u, phi = fields(b)
 
         def kernel():
-            return K.ks_control_period_packed(ops, u, phi, 1e-3, 250, "l2control", "bf16_3x")
+            return K.ks_control_period_packed(ops, u, phi, 1e-3, 250, "l2control", precision)
 
         def plain():
             return K.ks_control_period_packed_plain(ops, u, phi, 1e-3, 250, "l2control",
-                                                    "bf16_3x")
+                                                    precision)
 
         # Plain, kernel, kernel, plain: the two versions alternate.
         p1 = time_period(plain, 3)
         k1 = time_period(kernel, 50)
         k2 = time_period(kernel, 50)
         p2 = time_period(plain, 3)
-        bound, bound_by = period_bound(b, 64, 250, K2_FLOPS[3])
+        bound, bound_by = period_bound(b, 64, 250, K2_FLOPS[K.LIMB_PASSES[precision]])
         ms = min(k1, k2)
-        timings[b] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound,
-                      "bound_by": bound_by}
-        print(f"   per bf16_3x control period (250 sub-steps) at B={b}: K2 {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound {bound:.4f} ms "
+        timings[precision, b] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound,
+                                 "bound_by": bound_by}
+        print(f"   per {precision} control period (250 sub-steps) at B={b}: K2 {k1:.4f} / "
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound {bound:.6f} ms "
               f"({bound_by}), {100 * bound / ms:.2f}% of it", flush=True)
     return timings
 
@@ -651,7 +687,7 @@ def main() -> int:
             "replaces": "pdecontrol_tpu/ops/pallas_ks_packed.py:213",
             "launches": k2_counts["K2"],
             "max_abs_err": max(k2_errors),
-            **k2_timings[10],
+            **k2_timings["bf16_3x", 10],
             "library_ms": None,
         },
     ]}), flush=True)

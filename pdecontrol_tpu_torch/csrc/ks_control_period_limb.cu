@@ -23,20 +23,66 @@
 // over these terms computes the TPU kernel's matrix product up to the
 // order of summation.
 //
-// What bounds it on this card: latency, as for K1 (ks_control_period.cu).
-// A period is 250 sub-steps x 4 dependent RHS evaluations, each of which
-// needs the neighbours' previous stage; a row is 64 floats in and 65 out.
-// The design is K1's: one launch per period, one thread per grid point, the
-// state in a register, the current stage in shared memory, a warp-shuffle
-// reward.  Each stage publishes its value's and its square's bf16 limbs,
-// computed once per point, and every tap reads them back.  The stencils are
-// direct (-c_xx 7 taps, -c_xxxx 9, the one-sided upwinds 5 each) with the
-// bf16 limbs of the float32 entries of the port's operator matrices, passed
-// in by the host.  The tensor cores (mma.sync / wgmma on bf16 tiles) are
-// not used: that redesign is later work.
+// The bound.  Per grid point and RHS evaluation the function needs 21 taps
+// (u_xx 7, u_xxxx 9, and the one 5-tap upwind sum that the sign of the
+// stage value picks) as FMAs in each limb pass, 8 FLOPs for the square, the
+// combine and the stage input, and 7 for the limbs; with the RK4 combine
+// and the reward that is 574 FLOPs per point and sub-step at bf16_3x (742
+// at bf16_4x, 238 at bf16), 9.2 MFLOP per row of 64 points and 250
+// sub-steps against 772 bytes in and out.  Of the 574, 504 are bf16 x bf16
+// products accumulated in float32 (168 per pass), an operation the H100's
+// tensor cores run at 989 TFLOP/s; the other 70 are float32 at 67 TFLOP/s.
+// Each over its own peak, the kernel is operations-bound by the roofline:
+// 0.025 ms per period at B=1024.  At B <= 64 it is latency-bound: a period
+// is one chain of 1,000 dependent RHS evaluations, each of which needs the
+// neighbours' limbs of the previous stage.
+//
+// The design is K1's (ks_control_period.cu), with the limbs:
+//   * one launch per control period, one warp per row and one warp per
+//     block (blocks = B); lane l holds the P = n/32 consecutive points
+//     [l*P, l*P + P) in registers for all sub-steps (templated on P = 1..8,
+//     on the limb passes and on the objective);
+//   * each lane splits its own points once per RHS: the square
+//     s = __fmul_rn(v, v) (rounded, so no FMA contraction reaches the lo
+//     limb), one packed conversion for the word (bf16(v), bf16(s)) and one
+//     for (bf16(v - v_hi), bf16(s - s_hi)); both differences are exact, so
+//     the limbs carry the bits of the plain version's rounding;
+//   * the stencils reach 4 points, so each RHS takes the 8 halo points'
+//     limb words from the neighbouring lanes by __shfl_sync (16 shuffles at
+//     3 and 4 passes, 8 at one), and (l + k) & 31 wraps the periodic grid
+//     because 32 * P = n.  A halo limb is its owner's word: no limb is
+//     computed twice.  No shared memory, no block barrier;
+//   * every operator and every limb pass has its own accumulator: at
+//     bf16_3x the -c_xxxx sum is three independent 9-FMA chains hh, hl and
+//     lh (x_hi*W_hi, x_hi*W_lo, x_lo*W_hi), summed in limb_dot's pass order
+//     (hh + hl) + lh (+ ll), not one chain of 27;
+//   * each lane sums its points' reward terms over all sub-steps in
+//     registers, and one warp reduction per term ends the period (this
+//     reorders the float32 sum of the per-sub-step version).
+//
+// Instructions per RHS and lane at P = 2 and bf16_3x: 156 FMAs (both upwind
+// sums are evaluated and one is selected: 2 points x 26 taps x 3 passes),
+// 16 adds of the pass sums, 4 packed conversions (2 per own point), 16
+// shuffles, 40 unpacks of a bf16 half to float (4 per point of the
+// window), 2 squares, 4 limb differences and ~14 for the combine, the
+// select and the stage input: ~250.  At one pass: 52 FMAs, 2 conversions,
+// 8 shuffles, 20 unpacks.  Shuffling the 8 halo values instead and
+// recomputing their limbs costs 8 shuffles fewer but 8 squares, 16
+// conversions and 16 differences more, on a longer dependent chain; it
+// measured 5-10% slower on an H100.
+//
+// No tensor cores.  Every limb product is bf16 x bf16 -> f32, which is what
+// mma.sync computes, but its smallest tile (m16n8k16) takes 16 rows: at the
+// flagship batch of 10 one warp would carry every row, and the circulant
+// stencils cut into the 16 x 8 tiles they touch cost 8 column tiles x 2
+// k-tiles x 4 operator blocks x 3 passes = 192 MMAs per warp and RHS, over
+// a thousand cycles, against the ~250 instructions per RHS and lane above.
+// Spreading the tiles over a warpgroup brings back a shared-memory exchange
+// and a barrier per RHS.  They could pay only at large batches, where these
+// FMAs leave most of the tensor-core bound above unused.
 //
 // Plain C interface (built with nvcc into a shared library, called through
-// ctypes); the function returns cudaGetLastError() after the launch.
+// ctypes); it returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,7 +91,8 @@
 
 namespace {
 
-constexpr int kThreadsPerBlock = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kReach = 4;  // the widest stencil, -c_xxxx, spans -4..4
 
 // hi and lo bf16 limbs (stored as float) of the operators' nonzero entries.
 struct LimbTaps {
@@ -55,189 +102,201 @@ struct LimbTaps {
   float bwh[5], bwl[5];  // backward upwind of u^2, offsets -4..0
 };
 
-__device__ __forceinline__ int wrap(int j, int n) {
-  j += (j < 0) ? n : 0;
-  j -= (j >= n) ? n : 0;
-  return j;
-}
-
-__device__ __forceinline__ float bf16_rn(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
   return v;
 }
 
-// One limb product term of tap weight (wh, wl) with the value limbs at
-// index j, added to acc.
+// The limb words of stage value v: hi = (bf16(v), bf16(s)) and
+// lo = (bf16(v - v_hi), bf16(s - s_hi)), s the float32 square.  lo is not
+// written at one pass.
 template <int kPasses>
-__device__ __forceinline__ float limb_fma(float acc, float wh, float wl, const float* hi,
-                                          const float* lo, int j) {
-  const float xh = hi[j];
-  acc = fmaf(wh, xh, acc);
-  if (kPasses >= 3) {
-    const float xl = lo[j];
-    acc = fmaf(wl, xh, acc);
-    acc = fmaf(wh, xl, acc);
-    if (kPasses == 4) acc = fmaf(wl, xl, acc);
-  }
-  return acc;
-}
-
-// Shared-memory rows of one block row: the limbs of the stage value and of
-// its square.  The lo arrays are unused (and not allocated) at one pass.
-struct StageRows {
-  float* vh;
-  float* vl;
-  float* sh;
-  float* sl;
-};
-
-// One RHS evaluation at stage value v of grid point i.  Returns the RHS and
-// writes the upwind u_x and the -c_xx product (for the reward).  The
-// trailing barrier protects the shared rows until every thread has read
-// them.
-template <int kPasses>
-__device__ __forceinline__ float rhs(float v, float phi, const StageRows& r, int i, int n,
-                                     const LimbTaps& t, float* u_x, float* neg_uxx) {
-  const float vh = bf16_rn(v);
-  // Rounded square (no FMA contraction into s - sh): the lo limb is taken
-  // of the float32 square, as the TPU kernel takes it.
+__device__ __forceinline__ void split(float v, __nv_bfloat162& hi, __nv_bfloat162& lo) {
   const float s = __fmul_rn(v, v);
-  const float sh = bf16_rn(s);
-  r.vh[i] = vh;
-  r.sh[i] = sh;
-  if (kPasses >= 3) {
-    r.vl[i] = bf16_rn(v - vh);
-    r.sl[i] = bf16_rn(s - sh);
-  }
-  __syncthreads();
-  float d2 = 0.f, d4 = 0.f, fwd = 0.f, bwd = 0.f;
-#pragma unroll
-  for (int d = -3; d <= 3; ++d)
-    d2 = limb_fma<kPasses>(d2, t.c2h[d + 3], t.c2l[d + 3], r.vh, r.vl, wrap(i + d, n));
-#pragma unroll
-  for (int d = -4; d <= 4; ++d)
-    d4 = limb_fma<kPasses>(d4, t.c4h[d + 4], t.c4l[d + 4], r.vh, r.vl, wrap(i + d, n));
-#pragma unroll
-  for (int d = 0; d <= 4; ++d)
-    fwd = limb_fma<kPasses>(fwd, t.fwh[d], t.fwl[d], r.sh, r.sl, wrap(i + d, n));
-#pragma unroll
-  for (int d = -4; d <= 0; ++d)
-    bwd = limb_fma<kPasses>(bwd, t.bwh[d + 4], t.bwl[d + 4], r.sh, r.sl, wrap(i + d, n));
-  __syncthreads();
-  const float ux = (v < 0.f) ? fwd : bwd;
-  *u_x = ux;
-  *neg_uxx = d2;
-  return (d2 + d4) - 0.5f * ux + phi;
+  hi = __floats2bfloat162_rn(v, s);
+  if (kPasses >= 3) lo = __floats2bfloat162_rn(v - __low2float(hi), s - __high2float(hi));
 }
 
-template <int kPasses, bool kDissipation>
-__global__ void __launch_bounds__(kThreadsPerBlock)
+// One stencil's limb product: taps (wh, wl) against the limbs (xh, xl) of
+// window points j0, j0 + 1, ...  Each pass has its own accumulator, and the
+// passes are summed in limb_dot's order.
+template <int kPasses, int kTaps, int W>
+__device__ __forceinline__ float limb_sum(const float (&wh)[kTaps], const float (&wl)[kTaps],
+                                          const float (&xh)[W], const float (&xl)[W], int j0) {
+  float hh = 0.f, hl = 0.f, lh = 0.f, ll = 0.f;
+#pragma unroll
+  for (int d = 0; d < kTaps; ++d) {
+    hh = fmaf(wh[d], xh[j0 + d], hh);
+    if (kPasses >= 3) {
+      hl = fmaf(wl[d], xh[j0 + d], hl);
+      lh = fmaf(wh[d], xl[j0 + d], lh);
+      if (kPasses == 4) ll = fmaf(wl[d], xl[j0 + d], ll);
+    }
+  }
+  if (kPasses == 1) return hh;
+  const float y = (hh + hl) + lh;
+  return (kPasses == 4) ? y + ll : y;
+}
+
+// One RHS evaluation at the stage values v[P] of this lane's points.  Writes
+// the RHS of each point to k, and its upwind u_x and -c_xx product to ux,
+// neg_uxx (read only for the reward of the first stage).
+template <int P, int kPasses>
+__device__ __forceinline__ void rhs(const float (&v)[P], const float (&phi)[P], int lane,
+                                    const LimbTaps& t, float (&k)[P], float (&ux)[P],
+                                    float (&neg_uxx)[P]) {
+  // The window [4 halo | P own | 4 halo] of limb words.
+  constexpr int W = P + 2 * kReach;
+  __nv_bfloat162 hi[W], lo[W];
+#pragma unroll
+  for (int p = 0; p < P; ++p) split<kPasses>(v[p], hi[kReach + p], lo[kReach + p]);
+  // Halo point h (1..4) to the left is point lP - h, held by lane l - q at
+  // index qP - h, where q = ceil(h / P); to the right, point lP + P - 1 + h
+  // is held by lane l + q at index h - 1 - (q - 1)P.  They are fetched in
+  // the order the tap sums consume them, leftmost first.
+#pragma unroll
+  for (int h = kReach; h >= 1; --h) {
+    const int q = (h + P - 1) / P;
+    const int src = (lane - q) & 31, j = kReach + q * P - h;
+    hi[kReach - h] = __shfl_sync(kFullMask, hi[j], src);
+    if (kPasses >= 3) lo[kReach - h] = __shfl_sync(kFullMask, lo[j], src);
+  }
+#pragma unroll
+  for (int h = 1; h <= kReach; ++h) {
+    const int q = (h + P - 1) / P;
+    const int src = (lane + q) & 31, j = kReach + h - 1 - (q - 1) * P;
+    hi[kReach + P - 1 + h] = __shfl_sync(kFullMask, hi[j], src);
+    if (kPasses >= 3) lo[kReach + P - 1 + h] = __shfl_sync(kFullMask, lo[j], src);
+  }
+
+  // The limbs as float: value hi and lo, square hi and lo.
+  float vh[W], vl[W], sh[W], sl[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    vh[j] = __low2float(hi[j]);
+    sh[j] = __high2float(hi[j]);
+    if (kPasses >= 3) {
+      vl[j] = __low2float(lo[j]);
+      sl[j] = __high2float(lo[j]);
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int c = kReach + p;
+    const float d2 = limb_sum<kPasses>(t.c2h, t.c2l, vh, vl, c - 3);
+    const float d4 = limb_sum<kPasses>(t.c4h, t.c4l, vh, vl, c - 4);
+    const float fwd = limb_sum<kPasses>(t.fwh, t.fwl, sh, sl, c);
+    const float bwd = limb_sum<kPasses>(t.bwh, t.bwl, sh, sl, c - 4);
+    const float u_x = (v[p] < 0.f) ? fwd : bwd;
+    ux[p] = u_x;
+    neg_uxx[p] = d2;
+    k[p] = (d2 + d4) - 0.5f * u_x + phi[p];
+  }
+}
+
+template <int P, int kPasses, bool kDissipation>
+__global__ void __launch_bounds__(32)
 ks_control_period_limb_kernel(const float* __restrict__ u_in, const float* __restrict__ phi_in,
-                              float* __restrict__ u_out, float* __restrict__ rew_out,
-                              int batch, int n, int rows_per_block, float dt, int cfg_steps,
-                              LimbTaps taps) {
-  extern __shared__ float smem[];
-  const int local_row = threadIdx.x / n;
-  const int i = threadIdx.x - local_row * n;
-  const int row = blockIdx.x * rows_per_block + local_row;
-  const bool active = row < batch;
-  const int warps_per_row = n / 32;
-  const int warp_in_row = i / 32;
-  const int lane = threadIdx.x & 31;
+                              float* __restrict__ u_out, float* __restrict__ rew_out, float dt,
+                              int cfg_steps, LimbTaps taps) {
+  constexpr int n = 32 * P;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
 
-  // [vh | sh | vl | sl] planes of rows_per_block * n floats, then the
-  // per-warp reward partials [rows][warps_per_row][3].
-  const int plane = rows_per_block * n;
-  const int planes = (kPasses >= 3) ? 4 : 2;
-  StageRows r;
-  r.vh = smem + 0 * plane + local_row * n;
-  r.sh = smem + 1 * plane + local_row * n;
-  r.vl = (kPasses >= 3) ? smem + 2 * plane + local_row * n : nullptr;
-  r.sl = (kPasses >= 3) ? smem + 3 * plane + local_row * n : nullptr;
-  float* red = smem + planes * plane + local_row * warps_per_row * 3;
+  const float* u_row = u_in + static_cast<size_t>(row) * n + lane * P;
+  const float* phi_row = phi_in + static_cast<size_t>(row) * n + lane * P;
+  float u[P], phi[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    u[p] = u_row[p];
+    phi[p] = phi_row[p];
+  }
 
-  // Rows past the batch (the last block's tail) compute on zeros and write
-  // nothing; they still take part in every barrier.
-  float u = active ? u_in[row * n + i] : 0.f;
-  const float phi = active ? phi_in[row * n + i] : 0.f;
-  const float inv_n = 1.0f / static_cast<float>(n);
-  float acc = 0.f;
+  // This lane's reward terms, summed over its points and all sub-steps:
+  // l2control a = u^2; dissipation a = u_xx^2 (the square of the -c_xx
+  // product), b = u_x^2, c = u*phi.
+  float a = 0.f, b = 0.f, c = 0.f;
+  float k1[P], k2[P], k3[P], k4[P], ux[P], nxx[P], stage[P];
 
   for (int s = 0; s < cfg_steps; ++s) {
-    float ux, neg_uxx, ux_, nxx_;
-    const float k1 = rhs<kPasses>(u, phi, r, i, n, taps, &ux, &neg_uxx);
-
-    // Reward on the pre-step state, reduced over the row.
-    float a, b = 0.f, c = 0.f;
-    if (kDissipation) {
-      const float uxx = -neg_uxx;
-      a = warp_sum(uxx * uxx);
-      b = warp_sum(ux * ux);
-      c = warp_sum(u * phi);
-    } else {
-      a = warp_sum(u * u);
-    }
-    if (lane == 0) {
-      red[warp_in_row * 3 + 0] = a;
-      red[warp_in_row * 3 + 1] = b;
-      red[warp_in_row * 3 + 2] = c;
-    }
-    __syncthreads();
-    if (i == 0) {
-      float sa = 0.f, sb = 0.f, sc = 0.f;
-      for (int w = 0; w < warps_per_row; ++w) {
-        sa += red[w * 3 + 0];
-        sb += red[w * 3 + 1];
-        sc += red[w * 3 + 2];
+    rhs<P, kPasses>(u, phi, lane, taps, k1, ux, nxx);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (kDissipation) {
+        a += nxx[p] * nxx[p];
+        b += ux[p] * ux[p];
+        c += u[p] * phi[p];
+      } else {
+        a += u[p] * u[p];
       }
-      acc += kDissipation ? -(sa * inv_n + sb * inv_n + sc * inv_n) : -(sa * inv_n);
+      stage[p] = u[p] + dt * k1[p] / 2.0f;
     }
-    // ``red`` is rewritten only after the next sub-step's first RHS, whose
-    // two barriers follow this read.
-
-    const float k2 = rhs<kPasses>(u + dt * k1 / 2.0f, phi, r, i, n, taps, &ux_, &nxx_);
-    const float k3 = rhs<kPasses>(u + dt * k2 / 2.0f, phi, r, i, n, taps, &ux_, &nxx_);
-    const float k4 = rhs<kPasses>(u + dt * k3, phi, r, i, n, taps, &ux_, &nxx_);
-    u = u + dt * (k1 + 2.0f * k2 + 2.0f * k3 + k4) / 6.0f;
+    rhs<P, kPasses>(stage, phi, lane, taps, k2, ux, nxx);
+#pragma unroll
+    for (int p = 0; p < P; ++p) stage[p] = u[p] + dt * k2[p] / 2.0f;
+    rhs<P, kPasses>(stage, phi, lane, taps, k3, ux, nxx);
+#pragma unroll
+    for (int p = 0; p < P; ++p) stage[p] = u[p] + dt * k3[p];
+    rhs<P, kPasses>(stage, phi, lane, taps, k4, ux, nxx);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      u[p] = u[p] + dt * (k1[p] + 2.0f * k2[p] + 2.0f * k3[p] + k4[p]) / 6.0f;
   }
 
-  if (active) {
-    u_out[row * n + i] = u;
-    if (i == 0) rew_out[row] = acc / static_cast<float>(cfg_steps);
+  float* u_dst = u_out + static_cast<size_t>(row) * n + lane * P;
+#pragma unroll
+  for (int p = 0; p < P; ++p) u_dst[p] = u[p];
+
+  const float inv_n = 1.0f / static_cast<float>(n);
+  float total;
+  if (kDissipation) {
+    const float sa = warp_sum(a), sb = warp_sum(b), sc = warp_sum(c);
+    total = -(sa * inv_n + sb * inv_n + sc * inv_n);
+  } else {
+    total = -(warp_sum(a) * inv_n);
+  }
+  if (lane == 0) rew_out[row] = total / static_cast<float>(cfg_steps);
+}
+
+template <int P, int kPasses>
+void launch(const float* u, const float* phi, float* u_out, float* rew_out, int batch, float dt,
+            int cfg_steps, bool dissipation, const LimbTaps& taps, cudaStream_t stream) {
+  if (dissipation) {
+    ks_control_period_limb_kernel<P, kPasses, true><<<batch, 32, 0, stream>>>(
+        u, phi, u_out, rew_out, dt, cfg_steps, taps);
+  } else {
+    ks_control_period_limb_kernel<P, kPasses, false><<<batch, 32, 0, stream>>>(
+        u, phi, u_out, rew_out, dt, cfg_steps, taps);
   }
 }
 
 template <int kPasses>
-void launch(const float* u, const float* phi, float* u_out, float* rew_out, int batch, int n,
-            float dt, int cfg_steps, bool dissipation, const LimbTaps& taps,
-            cudaStream_t stream) {
-  const int rows_per_block = kThreadsPerBlock / n;
-  const int blocks = (batch + rows_per_block - 1) / rows_per_block;
-  const int threads = rows_per_block * n;
-  const int planes = (kPasses >= 3) ? 4 : 2;
-  const size_t smem =
-      sizeof(float) * (planes * rows_per_block * n + rows_per_block * (n / 32) * 3);
-  if (dissipation) {
-    ks_control_period_limb_kernel<kPasses, true><<<blocks, threads, smem, stream>>>(
-        u, phi, u_out, rew_out, batch, n, rows_per_block, dt, cfg_steps, taps);
-  } else {
-    ks_control_period_limb_kernel<kPasses, false><<<blocks, threads, smem, stream>>>(
-        u, phi, u_out, rew_out, batch, n, rows_per_block, dt, cfg_steps, taps);
+void launch_passes(const float* u, const float* phi, float* u_out, float* rew_out, int batch,
+                   int n, float dt, int cfg_steps, bool dis, const LimbTaps& taps,
+                   cudaStream_t s) {
+  switch (n / 32) {
+    case 1: launch<1, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s); break;
+    case 2: launch<2, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s); break;
+    case 3: launch<3, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s); break;
+    case 4: launch<4, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s); break;
+    case 5: launch<5, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s); break;
+    case 6: launch<6, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s); break;
+    case 7: launch<7, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s); break;
+    default: launch<8, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s);
   }
 }
 
 }  // namespace
 
+// One control period of a [batch, n] float32 batch at 1, 3 or 4 limb
+// passes.  n is a multiple of 32 up to 256.
 extern "C" int ks_control_period_limb(const void* u, const void* phi, void* u_out,
                                       void* rew_out, int batch, int n, float dt, int cfg_steps,
                                       int dissipation, int passes, const void* taps52,
                                       void* stream) {
-  if (n < 9 || n % 32 != 0 || n > kThreadsPerBlock || cfg_steps < 1) {
+  if (n < 32 || n % 32 != 0 || n > 256 || cfg_steps < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (passes != 1 && passes != 3 && passes != 4) {
@@ -255,11 +314,11 @@ extern "C" int ks_control_period_limb(const void* u, const void* phi, void* u_ou
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dis = dissipation != 0;
   if (passes == 1) {
-    launch<1>(uu, pp, uo, ro, batch, n, dt, cfg_steps, dis, taps, s);
+    launch_passes<1>(uu, pp, uo, ro, batch, n, dt, cfg_steps, dis, taps, s);
   } else if (passes == 3) {
-    launch<3>(uu, pp, uo, ro, batch, n, dt, cfg_steps, dis, taps, s);
+    launch_passes<3>(uu, pp, uo, ro, batch, n, dt, cfg_steps, dis, taps, s);
   } else {
-    launch<4>(uu, pp, uo, ro, batch, n, dt, cfg_steps, dis, taps, s);
+    launch_passes<4>(uu, pp, uo, ro, batch, n, dt, cfg_steps, dis, taps, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,14 @@
 and held to their plain PyTorch versions (K1 float32 at the tolerance of
 tests/test_pallas_ks.py over 20 sub-steps, rtol 1e-4 / atol 1e-5 over a
 full period of 250; K2's limb modes at rtol 1e-4 / atol 1e-4, the
-tolerance of tests/test_torch_packed.py against the JAX kernel body).  Every
-test here needs a card and skips without one.  This file imports no JAX, so
-that it runs where JAX is not installed:
+tolerance of tests/test_torch_packed.py against the JAX kernel body, over
+20 sub-steps and, at 3 and 4 passes, over a full period).  Both kernels run
+one warp per row with the state in registers, so the cases cover every
+batch shape the main path launches (1 to 1024 rows) and grids of 32, 64
+and 128 points (1, 2 and 4 points per lane), and K2 also 96 and 256 (3 and
+8 points per lane).  Every test here needs a card
+and skips without one.  This file imports no JAX, so that it runs where JAX
+is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -93,31 +98,61 @@ def test_kernel_wrapper_raises_instead_of_falling_back(dev):
         pallas_ks.ks_control_period(ops32, u, u, 1e-3, 2)
 
 
-@pytest.mark.parametrize("precision", ["bf16", "bf16_3x", "bf16_4x"])
-@pytest.mark.parametrize("objective", ["l2control", "dissipation"])
-@pytest.mark.parametrize("batch", [12, 8, 1])
-def test_limb_kernel_matches_plain_version(dev, precision, objective, batch):
-    from pdecontrol_tpu_torch.ops import pallas_ks_packed
+def _k2_inputs(dev, batch, n, seed):
+    """K2's operators at the flagship spacing and a smooth field under a
+    sine forcing.  Smooth fields, as on the attractor: on rough ones the
+    derivatives are large enough that a last-bit difference in the
+    summation order flips the bf16 rounding of an operand within 20
+    sub-steps, and one flip moves one-pass bf16 by ~1e-3 (the limb modes
+    absorb it in the lo limb)."""
     from pdecontrol_tpu_torch.ops.kuramoto import KSOperators
 
-    ops = KSOperators.create(64, 22.0, device=dev)
-    # Smooth fields, as on the attractor: on rough ones the derivatives are
-    # large enough that a last-bit difference in the summation order flips
-    # the bf16 rounding of an operand within 20 sub-steps, and one flip
-    # moves one-pass bf16 by ~1e-3 (the limb modes absorb it in the lo limb).
-    rng = np.random.default_rng(batch)
-    f = np.fft.rfft(rng.normal(size=(batch, 64)), axis=-1)
+    ops = KSOperators.create(n, 22.0 * n / 64, device=dev)
+    rng = np.random.default_rng(seed)
+    f = np.fft.rfft(rng.normal(size=(batch, n)), axis=-1)
     f[:, 8:] = 0
-    field = np.fft.irfft(f, n=64, axis=-1)
+    field = np.fft.irfft(f, n=n, axis=-1)
     u = torch.as_tensor(3.0 * field / np.abs(field).max(), dtype=torch.float32, device=dev)
-    phi = torch.as_tensor(np.repeat(0.3 * np.sin(2 * np.pi * np.arange(64) / 64)[None],
+    phi = torch.as_tensor(np.repeat(0.3 * np.sin(2 * np.pi * np.arange(n) / n)[None],
                                     batch, 0), dtype=torch.float32, device=dev)
+    return ops, u, phi
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16_3x", "bf16_4x"])
+@pytest.mark.parametrize("objective", ["l2control", "dissipation"])
+@pytest.mark.parametrize("n, batch", [(64, 1), (64, 3), (64, 8), (64, 10), (64, 12),
+                                      (64, 64), (64, 1024), (32, 8), (96, 8), (128, 8),
+                                      (256, 8)])
+def test_limb_kernel_matches_plain_version(dev, precision, objective, n, batch):
+    """Every halo case of the lanes' shuffles: 1 point per lane (n = 32, the
+    halo up to four lanes away), 2 and 3 (n = 64, 96: one or two lanes
+    away), and 4 to 8 (n = 128, 256: the next lane only), the last with the
+    most registers."""
+    from pdecontrol_tpu_torch.ops import pallas_ks_packed
+
+    ops, u, phi = _k2_inputs(dev, batch, n, batch)
     before = pallas_ks_packed.launch_count
     got = pallas_ks_packed.ks_control_period_packed(ops, u, phi, 1e-3, 20, objective,
                                                     precision)
     torch.cuda.synchronize()
     assert pallas_ks_packed.launch_count == before + 1
     ref = pallas_ks_packed.ks_control_period_packed_plain(ops, u, phi, 1e-3, 20, objective,
+                                                          precision)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("precision", ["bf16_3x", "bf16_4x"])
+@pytest.mark.parametrize("objective", ["l2control", "dissipation"])
+def test_limb_kernel_matches_plain_version_over_a_full_period(dev, precision, objective):
+    """250 sub-steps at the reset pool's batch.  One-pass bf16 is not held
+    this long: its rounding flips add up over a period."""
+    from pdecontrol_tpu_torch.ops import pallas_ks_packed
+
+    ops, u, phi = _k2_inputs(dev, 64, 64, 7)
+    got = pallas_ks_packed.ks_control_period_packed(ops, u, phi, 1e-3, 250, objective,
+                                                    precision)
+    ref = pallas_ks_packed.ks_control_period_packed_plain(ops, u, phi, 1e-3, 250, objective,
                                                           precision)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
