@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven phases, each timed:
+Nine phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
@@ -21,9 +21,11 @@ Seven phases, each timed:
      events), beside the plain version's time and the roofline bound;
   3. the main path — ``pdecontrol_tpu_torch.mbrl.script.main`` with the
      flagship arguments of ``runscripts/mbpo_ks.sh`` and ``--solver pallas``
-     for a few iterations (see ``MAIN_ARGS``), then checks that K1 ran
-     during the run, that every logged loss and return is finite and that
-     ``metrics.jsonl`` exists;
+     for a few iterations (see ``MAIN_ARGS``), then checks K1's launch count,
+     that every logged loss and return is finite, that ``metrics.jsonl``
+     exists, that ``checkpoints/`` holds the steps 2, 4 and 6, and that the
+     evaluation artifacts of iteration 0 (and, where the host has matplotlib
+     and PIL, the plots) were written;
   4. K2 (one warp per row, the limbs' halo by warp shuffles) against its
      plain PyTorch version on the card (see ``check_limb_kernel``), for
      ``bf16``, ``bf16_3x`` and ``bf16_4x`` and both objectives, on smooth
@@ -41,11 +43,21 @@ Seven phases, each timed:
      checked as phase 3, and K2 must have launched;
   7. the model-free SAC baseline CLI (``pdecontrol_tpu_torch.sac.train``)
      through K2 for 5,000 env steps; K2 must have launched and every logged
-     loss and return must be finite.
+     loss and return must be finite;
+  8. restart: a new controller built from phase 3's arguments with
+     ``--resume`` and two more iterations' worth of steps must restore
+     iteration 6 with phase 3's counters, run iterations 6 and 7 without a
+     warmup and append them to phase 3's ``metrics.jsonl``; then one
+     ``save_checkpoint()`` of the full-size state is timed (the seconds
+     until ``save()`` returns, until the file is on disk, and its size);
+  9. trace: the main path cut to iterations 0 and 1 with ``--profile_dir``;
+     the trace file must exist, and its size, the wall time of the traced
+     iteration and the share of it in which CUDA kernels ran are printed
+     (and the same kernel time against phase 3's untraced iteration 1).
 
-Every path of phases 3, 6 and 7 runs with the kernels' launch counts set to
-0 just before it, and they are read just after it; K1 runs the reset-pool
-transient of every path.  The script prints the card's name and power
+Every path of phases 3, 6, 7, 8 and 9 runs with the kernels' launch counts
+set to 0 just before it, and they are read just after it; K1 runs the
+reset-pool transient of every path.  The script prints the card's name and power
 limit, one JSON line describing the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, or when any phase fails, it exits non-zero and
@@ -66,6 +78,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(HERE, "runs", "chip_smoke")
 RUN_DIR_BF16 = os.path.join(HERE, "runs", "chip_smoke_bf16")
 RUN_DIR_SAC = os.path.join(HERE, "runs", "chip_smoke_sac")
+RUN_DIR_TRACE = os.path.join(HERE, "runs", "chip_smoke_trace")
 KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
@@ -97,9 +110,11 @@ K2_TOL = (1e-4, 1e-4)
 # runscripts/mbpo_ks.sh with --solver pallas.  Cut from the flagship:
 # total_timesteps 50000 -> 5060 (6 iterations after the 5000-step warmup),
 # surrogate_train_freq 500 -> 30 (retrains at iterations 0 and 3), the
-# trainer's max_steps 2000/250 -> 20/10, and --checkpoint_freq 200 dropped
-# (checkpointing is not ported).  With agent_eval_freq 50, iteration 0 runs
-# the one policy and surrogate evaluation of the run.
+# trainer's max_steps 2000/250 -> 20/10, and checkpoint_freq 200 -> 2
+# (snapshots after iterations 1, 3 and 5: steps 2, 4 and 6).  With
+# agent_eval_freq 50, iteration 0 runs the one policy and surrogate
+# evaluation of the run, and with logging_freq at its default of 10 it
+# writes their artifacts and the retrain's plots.
 MAIN_ARGS = [
     "--env_id", "KuramotoSivashinskyEnv-v0",
     "--factory", "KSAutoRegConvolutionalLSTM",
@@ -121,9 +136,35 @@ MAIN_ARGS = [
         "start": 0, "stop": 200, "vmin": 3, "vmax": 7}),
     "--policy_train_steps_per_sample", "10",
     "--surrogate_train_freq", "30",
+    "--checkpoint_freq", "2",
     "--solver", "pallas",
     "--run_dir", RUN_DIR,
 ]
+# K1 launches of the main path: the reset pool (800 + 3 x 40 periods), the
+# random warmup (5000 steps of 10 envs), the initial evaluation and
+# iteration 0's (400-step episodes), and one collect step per iteration.
+MAIN_K1_LAUNCHES = 920 + 500 + 400 + 400 + 6
+
+
+
+def with_args(args, **changes):
+    """``args`` with the value of each ``--flag`` in ``changes`` replaced."""
+    out = list(args)
+    for flag, value in changes.items():
+        out[out.index("--" + flag) + 1] = value
+    return out
+
+
+# Phase 8: the same command with --resume and 20 more env steps.
+RESUME_ARGS = with_args(MAIN_ARGS, total_timesteps="5080") + ["--resume"]
+
+# Phase 9: iterations 0 and 1 of the main path, the trainer cut to 5 steps a
+# fit, with a trace of iteration 1 (a non-retrain iteration).
+TRACE_ARGS = with_args(
+    MAIN_ARGS, total_timesteps="5020", run_dir=RUN_DIR_TRACE,
+    trainer=json.dumps({"initial": {"min_steps": 250, "max_steps": 5},
+                        "iterations": {"min_steps": 50, "max_steps": 5}}),
+) + ["--profile_dir", os.path.join(RUN_DIR_TRACE, "profile")]
 
 # runscripts/mbpo_ks_bf16.sh: the same run through K2 at bf16_3x.
 BF16_ARGS = MAIN_ARGS[: MAIN_ARGS.index("--solver")] + [
@@ -569,6 +610,55 @@ def check_records(path, checked):
     return records, seen
 
 
+METRICS = ("train_loss", "val_loss", "sac_qf_loss", "sac_policy_loss", "eval_return_mean",
+           "collect_reward_mean", "imagined_reward_mean", "world_return_mean",
+           "surrogate_open_loop_mse")
+# Keys of the evaluation artifacts of the JAX package
+# (``pdecontrol_tpu/mbrl/controller.py`` ``_save_eval_artifact`` and
+# ``_save_surrogate_artifact``).
+ARTIFACT_KEYS = {
+    "eval_0.npz": {"obs", "actions", "rewards"},
+    "surrogate_eval_0.npz": {"states", "outputs", "actions", "rewards", "rpred", "hstep_mse"},
+}
+PLOTS = {f"{stage}_{kind}_iter0.png" for stage in ("train", "val")
+         for kind in ("vis", "spatial")} | {"surrogate_iter0.png", "hstep_iter0.png"}
+
+
+def has_module(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def can_render() -> bool:
+    """Whether this host has what ``viz/plots.py`` imports."""
+    return has_module("matplotlib") and has_module("PIL")
+
+
+def check_outputs(run_dir, steps):
+    """The files a run leaves beside ``metrics.jsonl``: the snapshots
+    ``steps``, iteration 0's evaluation artifacts with the JAX package's
+    keys and finite contents, and, where the host can render, the plots."""
+    import numpy as np
+
+    names = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+    if names != sorted(f"{s}.pt" for s in steps):
+        raise AssertionError(f"checkpoints/ holds {names}, expected the steps {steps}")
+    for name, keys in ARTIFACT_KEYS.items():
+        with np.load(os.path.join(run_dir, "evaluation", name)) as z:
+            if set(z.files) != keys:
+                raise AssertionError(f"{name} holds {sorted(z.files)}")
+            shapes = {k: z[k].shape for k in z.files}
+            if not all(np.isfinite(z[k]).all() for k in z.files):
+                raise AssertionError(f"{name} holds non-finite values")
+        print(f"   {name}: {shapes}", flush=True)
+    plots_dir = os.path.join(run_dir, "plots")
+    plots = set(os.listdir(plots_dir)) if os.path.isdir(plots_dir) else set()
+    if can_render() and plots != PLOTS:
+        raise AssertionError(f"plots/ holds {sorted(plots)}, expected {sorted(PLOTS)}")
+    print(f"   checkpoints {names}; plots {sorted(plots)}", flush=True)
+
+
 def run_mbpo(args, run_dir, kernels):
     """Phases 3 and 6: the port's MBPO CLI entry point for 6 iterations."""
     from pdecontrol_tpu_torch.mbrl import script
@@ -580,11 +670,8 @@ def run_mbpo(args, run_dir, kernels):
         raise RuntimeError(f"learn() failed (script.main returned {rc})")
     require(counts, kernels, "the MBPO run")
 
-    records, seen = check_records(
-        os.path.join(run_dir, "metrics.jsonl"),
-        ("train_loss", "val_loss", "sac_qf_loss", "sac_policy_loss", "eval_return_mean",
-         "collect_reward_mean", "imagined_reward_mean", "world_return_mean",
-         "surrogate_open_loop_mse"))
+    records, seen = check_records(os.path.join(run_dir, "metrics.jsonl"), METRICS)
+    check_outputs(run_dir, (2, 4, 6))
     iters = [r for r in records if "iteration" in r]
     retrains = sum(1 for r in records if "num_ensemble_updates" in r)
     if len(iters) != 6 or retrains < 2:
@@ -623,6 +710,144 @@ def run_sac():
     return counts
 
 
+def build_controller(args):
+    """The MBPO controller of the CLI's ``args``, on the card."""
+    from pdecontrol_tpu_torch.mbrl import script
+    from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController
+
+    print("   args: " + " ".join(args), flush=True)
+    return PDEModelBasedController(script.config_from_args(
+        script.build_parser().parse_args(args)))
+
+
+def run_restart():
+    """Phase 8: resume phase 3's run from its last snapshot, run two more
+    iterations, and time one snapshot of the full-size state."""
+    import torch
+
+    path = os.path.join(RUN_DIR, "metrics.jsonl")
+    before = [json.loads(line) for line in open(path)]
+    last = before[-1]
+
+    def resumed():
+        ctl = build_controller(RESUME_ARGS)
+        try:
+            want = {
+                "iteration": 6,
+                "num_pol_updates": last["num_pol_updates"],
+                "num_ensemble_updates": max(r.get("num_ensemble_updates", 0) for r in before),
+                # A record counts the steps sampled before its iteration.
+                "total_steps": last["num_steps_sampled"] + ctl.samples_per_iteration,
+            }
+            got = {
+                "iteration": ctl.iteration,
+                "num_pol_updates": ctl.num_pol_updates,
+                "num_ensemble_updates": ctl.num_ensemble_updates,
+                "total_steps": int(ctl.replay.total_steps),
+            }
+            print(f"   restored {json.dumps(got)}", flush=True)
+            if not ctl.restored or got != want:
+                raise AssertionError(f"restored {got}, phase 3 ended at {want}")
+            ctl.learn()
+        finally:
+            ctl.logger.finish()
+        return ctl
+
+    ctl, counts = counted_run("resume + learn()", resumed)
+    require(counts, ("K1",), "the resumed run")
+
+    records, _ = check_records(path, METRICS)
+    if [r.get("iteration") for r in records] != list(range(8)):
+        raise AssertionError(f"metrics.jsonl holds {[r.get('iteration') for r in records]}")
+    if records[:6] != before:
+        raise AssertionError("the resumed run rewrote the records of the first run")
+    for r in records[6:]:
+        if "t_warmup_collect" in r or "eval_return_mean" in r:
+            raise AssertionError(f"iteration {r['iteration']} warmed up or evaluated again")
+        bad = {k: v for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"iteration {r['iteration']}: {bad}")
+        t = {k: v for k, v in r.items() if k.startswith("t_")}
+        print(f"   iteration {r['iteration']}: {json.dumps(t)}", flush=True)
+    backups = [f for f in os.listdir(RUN_DIR) if f.startswith("metrics.jsonl.bak")]
+    if backups:
+        raise AssertionError(f"the resume backed the stream up: {backups}")
+    if ctl.iteration != 8 or ctl.ckpt.latest_step() != 8:
+        raise AssertionError(f"ended at iteration {ctl.iteration}, snapshot "
+                             f"{ctl.ckpt.latest_step()}")
+
+    # One snapshot of the full-size state (both replays at their capacity).
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctl.save_checkpoint()
+    t_save = time.perf_counter() - t0
+    ctl.ckpt.wait()
+    t_disk = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(RUN_DIR, "checkpoints", "8.pt"))
+    t0 = time.perf_counter()
+    ctl.ckpt.restore(map_location="cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    print(f"   checkpoint: save() returned after {t_save:.4f} s, on disk after "
+          f"{t_disk:.4f} s, {size} bytes ({size / 1e6:.1f} MB); restore() to the card "
+          f"{t_restore:.4f} s", flush=True)
+
+
+def run_trace():
+    """Phase 9: iterations 0 and 1 of the main path with ``--profile_dir``."""
+    shutil.rmtree(RUN_DIR_TRACE, ignore_errors=True)
+
+    def traced():
+        ctl = build_controller(TRACE_ARGS)
+        try:
+            ctl.learn()
+        finally:
+            ctl.logger.finish()
+        return ctl
+
+    ctl, counts = counted_run("learn() with --profile_dir", traced)
+    require(counts, ("K1",), "the traced run")
+    trace = ctl.last_trace
+    if not trace or not os.path.exists(trace["path"]):
+        raise AssertionError("no trace was written")
+    if os.listdir(os.path.dirname(trace["path"])) != [os.path.basename(trace["path"])]:
+        raise AssertionError("--profile_dir holds more than the one trace")
+    size = os.path.getsize(trace["path"])
+    t0 = time.perf_counter()
+    with open(trace["path"]) as f:
+        events = json.load(f)["traceEvents"]
+    # The share of the traced iteration in which a kernel ran: the union of
+    # the kernels' intervals (microseconds) over the region's wall time.
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel" and e.get("ph") == "X")
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    print(f"   trace {trace['path']}: {size} bytes ({size / 1e6:.1f} MB), {len(events)} "
+          f"events, export {trace['export_s']:.2f} s, read back in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    records, _ = check_records(os.path.join(RUN_DIR_TRACE, "metrics.jsonl"),
+                               ("train_loss", "sac_qf_loss", "eval_return_mean"))
+    t = {k: v for k, v in records[1].items() if k.startswith("t_")}
+    print(f"   traced iteration 1: {trace['wall_s']:.4f} s under the profiler "
+          f"{json.dumps(t)}", flush=True)
+    if spans:
+        # The profiler slows the host, not the kernels: the same kernel time
+        # against phase 3's iteration 1, which ran the same work untraced.
+        with open(os.path.join(RUN_DIR, "metrics.jsonl")) as f:
+            untraced = [json.loads(line) for line in f][1]
+        plain_s = sum(v for k, v in untraced.items()
+                      if k in ("t_collect", "t_imagine", "t_policy", "t_pull"))
+        print(f"   {len(spans)} kernels ran for {busy / 1e6:.4f} s: the card was busy "
+              f"{100 * busy / 1e6 / trace['wall_s']:.2f}% of the traced iteration, and "
+              f"{100 * busy / 1e6 / plain_s:.2f}% of phase 3's untraced iteration 1 "
+              f"({plain_s:.4f} s)", flush=True)
+    else:
+        print("   the trace holds no CUDA kernel: device busy share not measured", flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "pdecontrol_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -636,6 +861,8 @@ def main() -> int:
     print(card(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    for module in ("matplotlib", "PIL"):
+        print(f"{module}: {'present' if has_module(module) else 'absent'}", flush=True)
 
     import pdecontrol_tpu_torch  # noqa: F401  (turns TF32 off)
 
@@ -650,6 +877,9 @@ def main() -> int:
 
     t0 = phase("3 main path (float32, K1)")
     k1_counts = run_mbpo(MAIN_ARGS, RUN_DIR, ("K1",))
+    if k1_counts["K1"] != MAIN_K1_LAUNCHES:
+        raise AssertionError(f"the main path launched K1 {k1_counts['K1']} times, "
+                             f"expected {MAIN_K1_LAUNCHES}")
     done("3 main path (float32, K1)", t0)
 
     t0 = phase("4 K2 against the plain version")
@@ -668,6 +898,14 @@ def main() -> int:
     t0 = phase("7 SAC baseline CLI (K2)")
     run_sac()
     done("7 SAC baseline CLI (K2)", t0)
+
+    t0 = phase("8 restart (resume the main path)")
+    run_restart()
+    done("8 restart (resume the main path)", t0)
+
+    t0 = phase("9 trace (--profile_dir)")
+    run_trace()
+    done("9 trace (--profile_dir)", t0)
 
     print(json.dumps({"kernels": [
         {

@@ -14,18 +14,29 @@ unfused phase order:
   4. imagined rollouts from replay starting states at the scheduled horizon;
   5. ``policy_train_steps_per_sample x samples`` SAC updates on a uniform
      mixture of real and imagined transitions (mbrl.py:529-566);
-  6. periodic policy / surrogate evaluation and a status table.
+  6. periodic policy / surrogate evaluation and a status table; at the
+     ``logging_freq`` cadence the evaluations' trajectories go to
+     ``<run_dir>/evaluation/*.npz`` and comparison plots to
+     ``<run_dir>/plots/*.png``, written by one background thread;
+  7. every ``checkpoint_freq`` iterations a snapshot of the whole training
+     state (``utils/checkpoint.py``); ``resume`` carries on from the last.
 
 Every phase ends in a device synchronisation before its ``t_*`` timer
 stops, so the per-phase timings in ``metrics.jsonl`` are honest wall times.
+A resumed run repeats neither the random warmup nor the initial policy
+evaluation (the JAX package repeats both, ``controller.py:1255-1266``): its
+replay, generator and counters are the snapshot's, so it goes on exactly as
+the uninterrupted run would have; only the wall-clock fields restart.
 The JAX package's fused iteration and fused fit, its precompile ladder, the
-device mesh, checkpointing, the profiler trace, plots and artifacts, and
-wandb are not ported yet; the options that ask for them raise.
+device mesh and wandb (logging, image and artifact uploads) are not ported;
+the options that ask for a mesh or for wandb raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import time
 from typing import Dict, Optional, Tuple
 
@@ -35,6 +46,7 @@ import torch
 from pdecontrol_tpu_torch.data import replay as R
 from pdecontrol_tpu_torch.data.types import Sample
 from pdecontrol_tpu_torch.envs import kuramoto as ks_env
+from pdecontrol_tpu_torch.mbrl.agents import ActionRepeatAgent, RandomAgent
 from pdecontrol_tpu_torch.mbrl.config import MBPOConfig
 from pdecontrol_tpu_torch.mbrl.transform_sets import ControllerTransforms
 from pdecontrol_tpu_torch.mbrl.world import WorldModel
@@ -48,7 +60,9 @@ from pdecontrol_tpu_torch.sac.sac import SAC, SACConfig
 from pdecontrol_tpu_torch.train.losses import make_loss
 from pdecontrol_tpu_torch.train.schedulers import Scheduler
 from pdecontrol_tpu_torch.train.trainer import SurrogateTrainer, TrainConfig
+from pdecontrol_tpu_torch.utils import checkpoint as C
 from pdecontrol_tpu_torch.utils import profiling
+from pdecontrol_tpu_torch.utils.asyncviz import BackgroundRenderer
 from pdecontrol_tpu_torch.utils.device import entry_device
 from pdecontrol_tpu_torch.utils.logging import MetricsLogger
 
@@ -69,6 +83,11 @@ LOG_SCALARS = ("world_buffer_samples", "collect_reward_mean",
                "total_steps")
 
 
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A host copy that later in-place writes to ``x`` cannot reach."""
+    return x.detach().to("cpu", copy=True).numpy()
+
+
 def check_ported(cfg: MBPOConfig) -> None:
     """Raise for every option that names a feature the port lacks."""
     todo = []
@@ -76,10 +95,6 @@ def check_ported(cfg: MBPOConfig) -> None:
         todo.append(f"env {cfg.env_id!r}")
     if cfg.data_parallel * cfg.model_parallel > 1:
         todo.append(f"a {cfg.data_parallel}x{cfg.model_parallel} device mesh")
-    if cfg.checkpoint_freq > 0 or cfg.resume:
-        todo.append("checkpointing (--checkpoint_freq > 0 / --resume)")
-    if cfg.profile_dir:
-        todo.append("the profiler trace (--profile_dir)")
     if cfg.use_wandb:
         todo.append("wandb logging")
     if cfg.factory not in factories.REGISTRY:
@@ -92,10 +107,12 @@ def check_ported(cfg: MBPOConfig) -> None:
 
 class PDEModelBasedController:
     def __init__(self, config: MBPOConfig, logger: Optional[MetricsLogger] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, debug_nans: bool = False):
         check_ported(config)
         self.config = cfg = config
         self.device = dev = entry_device(device)
+        # --debug_nans: finiteness checks at the phase boundaries.
+        self.finite = profiling.FiniteChecks() if debug_nans else None
         torch.manual_seed(cfg.seed)  # module initialisation
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
@@ -151,7 +168,8 @@ class PDEModelBasedController:
         self.train_cfgs = {
             phase: self._phase_train_config(phase) for phase in ("initial", "iterations")
         }
-        self.trainer = SurrogateTrainer(self.loss_fn, self.train_cfgs["initial"])
+        self.trainer = SurrogateTrainer(self.loss_fn, self.train_cfgs["initial"],
+                                        check=self.finite)
         self.member_states = [self.trainer.init(m) for m in self.ensemble.members]
 
         # Replays.
@@ -181,8 +199,11 @@ class PDEModelBasedController:
             reward_scale=cfg.reward_scale,
         )
         self.sac = SAC(self.agent_obs_shape, self.env.action_shape, sac_cfg,
-                       self.env.action_low, self.env.action_high, device=dev)
+                       self.env.action_low, self.env.action_high, device=dev,
+                       check=self.finite)
         self.sac_state = self.sac.init()
+        self.random_agent = RandomAgent(self.env.action_shape, self.env.action_low,
+                                        self.env.action_high)
 
         self.world = WorldModel(cfg.model_rollouts_batch_size,
                                 self.env.max_episode_steps, self.env.reward_fn,
@@ -195,14 +216,31 @@ class PDEModelBasedController:
             oscaling=self.tr.oscaling.update(self.env.observe(self.env_state))
         )
 
+        # Plot renders and npz writes run on one background thread, drained
+        # at the end of learn().
+        self.viz = BackgroundRenderer()
+        self.last_trace: Dict = {}  # --profile_dir's trace: path, wall_s, export_s
         self._start_time = time.time()
         self.throughput = profiling.Throughput()
         self.gc_monitor = profiling.GCMonitor()
-        if cfg.logging_freq > 0:
-            print("[controller] plots and evaluation artifacts are not ported "
-                  "yet: logging_freq has no effect", flush=True)
+
+        # Checkpoint / resume.
+        self.ckpt = None
+        self.restored = False
+        if cfg.checkpoint_freq or cfg.resume:
+            self.ckpt = C.CheckpointManager(os.path.join(cfg.run_dir, "checkpoints"))
+            if cfg.resume and self.ckpt.latest_step() is not None:
+                C.load_controller_state(self, self.ckpt.restore(map_location=dev))
+                self.restored = True
+                print(f"[resume] restored iteration {self.iteration}", flush=True)
+
+        # The metrics sink is created LAST, so that append mode tracks whether
+        # a checkpoint was actually restored: --resume with nothing to restore
+        # starts a fresh stream (the logger backs the old one up) instead of
+        # appending a restarted run onto it.
         self.logger = logger or MetricsLogger(config.run_dir, False, config.project,
-                                              config.name, config.to_dict())
+                                              config.name, config.to_dict(),
+                                              append=self.restored)
 
     # ------------------------------------------------------------- plumbing
     def _sync(self) -> None:
@@ -247,15 +285,15 @@ class PDEModelBasedController:
         for _ in range(nsteps):
             raw_obs = env.observe(self.env_state)
             if random:
-                shape = (raw_obs.shape[0],) + env.action_shape
-                u = torch.rand(shape, generator=self.gen, dtype=raw_obs.dtype,
-                               device=self.device)
-                action = env.action_low + u * (env.action_high - env.action_low)
+                action = self.random_agent.select_action(None, raw_obs, self.gen)
             else:
                 action = self.sac.select_action(
                     self.sac_state, tr.raw_to_agent_obs(raw_obs), self.gen)
             env_action = tr.agent_to_env_action(action)
             self.env_state, out = env.vec_step(self.env_state, env_action, self.pool)
+            if self.finite is not None:
+                self.finite("collect (env step)", field=out.info["final_obs"],
+                            reward=out.reward)
             # Update-then-apply ordering: the next step reads obs through the
             # updated scaling (vec_wrappers.py:157-160); running min/max
             # updates are idempotent, so the extra finals update is exact.
@@ -337,11 +375,56 @@ class PDEModelBasedController:
         self.ensemble = update_elites(self.ensemble,
                                       torch.as_tensor(scores, device=self.device))
         self.num_ensemble_updates += 1
+        self._train_vis(train_mask, val_mask, length0)
         scores = [float(s) for s in scores]
         return {"val_loss": float(np.mean(scores)), **logs,
                 "elite_scores": scores,
                 "t_split": round(t_split, 4),
                 "t_post": round(time.perf_counter() - t_post0, 4)}
+
+    @torch.no_grad()
+    def _train_vis(self, train_mask: torch.Tensor, val_mask: torch.Tensor,
+                   length: int) -> None:
+        """Train-time plots (reference VisCallback, callbacks.py:13-81):
+        after a surrogate retrain, at the ``logging_freq`` cadence, one
+        random train window and one random val window against member 0's
+        free-run reconstruction: the PDE comparison panels and the delta
+        heatmaps.  The draws and the rollout happen here whether or not the
+        host can render, so the generator's stream does not depend on the
+        host's packages."""
+        cfg = self.config
+        if cfg.logging_freq <= 0 or (self.num_ensemble_updates - 1) % cfg.logging_freq:
+            return
+        d = os.path.join(cfg.run_dir, "plots")
+        iteration = self.iteration
+        member, tau = self.ensemble.members[0], self.trainer.config.tau
+        stransf, und = self.tr.replay_to_world, self.tr.undscaling
+        for stage, mask in (("train", train_mask), ("val", val_mask)):
+            batch = stransf(R.sample_windows(self.replay, self.gen, 4, length,
+                                             rows_mask=mask))
+            states, actions = batch.obs, batch.actions
+            roll = member.rollout(states[:, :tau], actions, dscaling=und.inv)
+            decoded = torch.cat([states[:, :1], roll.outputs[:, :-1]], dim=1)
+            # A random sequence of the batch (callbacks.py:62), unscaled to
+            # physical space before plotting (callbacks.py:67-72).
+            i = int(torch.randint(0, states.shape[0], (1,), generator=self.gen,
+                                  device=self.device))
+            obs = _to_numpy(stransf.otransf.inverse(states[i]))
+            opred = _to_numpy(stransf.otransf.inverse(decoded[i]))
+            acts = _to_numpy(stransf.atransf.inverse(actions[i]))
+
+            def job(stage=stage, obs=obs, opred=opred, acts=acts):
+                from pdecontrol_tpu_torch.viz import plots
+
+                os.makedirs(d, exist_ok=True)
+                plots.pdeplot(obs, opred, acts).save(
+                    os.path.join(d, f"{stage}_vis_iter{iteration}.png"))
+                plots.spatial({
+                    "deltas": np.diff(obs, axis=0),
+                    "outdeltas": np.diff(opred, axis=0),
+                }).save(os.path.join(d, f"{stage}_spatial_iter{iteration}.png"))
+
+            self.viz.submit(job)
 
     # -------------------------------------------------------- world rollouts
     @torch.no_grad()
@@ -361,6 +444,9 @@ class PDEModelBasedController:
                     self.sac_state, tr.world_to_agent_obs(prev_obs), self.gen)
                 wstate, (_, reward, term, trunc, final_obs) = world.step(
                     self.gen, wstate, ens, action, tr, horizon, self.replay)
+                if self.finite is not None:
+                    self.finite("imagine (world-model step)", obs=final_obs,
+                                reward=reward)
                 R.write_step(self.world_replay, prev_obs, action, reward, term,
                              trunc, final_obs, prev_t + 1)
                 rewards.append(reward)
@@ -400,42 +486,38 @@ class PDEModelBasedController:
     @torch.no_grad()
     def evaluate_policy(self) -> Dict[str, float]:
         """Deterministic episodes on fresh envs with frozen scaling
-        (mbrl.py:462-465)."""
+        (mbrl.py:462-465); the episodes' trajectories go to an npz artifact
+        (mbrl.py:467-472)."""
         env, tr = self.env, self.tr
         state = env.reset_from_pool(self.gen, self.pool, (self.config.num_eval_episodes,))
-        rewards = []
+        obs_seq, actions, rewards = [], [], []
         for _ in range(env.max_episode_steps):
-            obs = tr.raw_to_agent_obs(env.observe(state))
-            action = self.sac.select_action(self.sac_state, obs, self.gen,
-                                            deterministic=True)
-            state, out = env.step(state, tr.agent_to_env_action(action))
+            raw = env.observe(state)
+            action = self.sac.select_action(self.sac_state, tr.raw_to_agent_obs(raw),
+                                            self.gen, deterministic=True)
+            env_action = tr.agent_to_env_action(action)
+            state, out = env.step(state, env_action)
+            obs_seq.append(raw)
+            actions.append(env_action)
             rewards.append(out.reward)
-        returns = torch.stack(rewards).sum(0)
+        rewards = torch.stack(rewards)
+        self._save_eval_artifact(obs_seq, actions, rewards)
+        returns = rewards.sum(0)
         mean, std = torch.stack([returns.mean(), returns.std(correction=0)]).tolist()
         return {"eval_return_mean": mean, "eval_return_std": std}
 
     @torch.no_grad()
-    def evaluate_surrogate(self, horizon: Optional[int] = None) -> Dict[str, float]:
-        """Open-loop replay of one logged episode's actions through the world
-        model vs the logged truth (mbrl.py:474-527): a random completed
-        episode, a random start, a tau-step warmup, then the episode's own
-        actions for ``horizon`` steps (``ActionRepeatAgent``).  Scores the
-        MSE in world space and the imagined-vs-true reward L1 error."""
-        horizon = self.config.surrogate_eval_horizon if horizon is None else horizon
-        tau, tr, world = self.tau, self.tr, self.world
-        u = torch.rand((2,), generator=self.gen, device=self.device).cpu().numpy()
-        fill = self.replay.fill.cpu().numpy()
-        complete = self.replay.complete.cpu().numpy()
-        rows = np.where(complete & (fill >= tau + horizon))[0]
-        if len(rows) == 0:
-            return {}
-        row = int(rows[min(int(u[0] * len(rows)), len(rows) - 1)])
-        # Exclusive upper bound as the reference's
-        # np.random.randint(0, length - tau - horizon) (mbrl.py:485).
-        hi = max(int(fill[row]) - tau - horizon, 1)
-        start = min(int(u[1] * hi), hi - 1)
-
-        rp = self.replay
+    def surrogate_rollout(self, row: int, start: int, horizon: int
+                          ) -> Dict[str, torch.Tensor]:
+        """Open-loop rollout of the logged actions of replay row ``row`` from
+        step ``start`` (the JAX package's ``_sur_eval_fn``): a tau-step
+        teacher-forced warm start (mbrl.py:484-496), then the episode's own
+        actions for ``horizon`` steps (``ActionRepeatAgent``,
+        mbrl.py:498-506).  Returns ``err`` (MSE in world space), ``hstep``
+        (the MSE per horizon step), ``reward_err`` (imagined-vs-true reward
+        L1 error), ``truth`` and ``preds`` [h, C, Hw], the world-space
+        ``actions`` and the reward curves ``rtrue`` and ``rpred``."""
+        tau, tr, world, rp = self.tau, self.tr, self.world, self.replay
         idx = start + torch.arange(tau + horizon, device=self.device)
         sample = Sample(
             obs=rp.obs_seq[row, idx][None],
@@ -449,49 +531,181 @@ class PDEModelBasedController:
         wsample = tr.replay_to_world(sample)
         state = world.reset_from_batch(self.gen, self.ensemble,
                                        wsample.apply(lambda x: x[:, :tau]), tr)
-        agent_actions = tr.env_action_to_agent(sample.actions)
+        agent = ActionRepeatAgent(tr.env_action_to_agent(sample.actions))
         preds, rpred = [], []
         for t in range(tau, tau + horizon):
-            waction = tr.env_action_to_world(tr.agent_to_env_action(agent_actions[:, t]))
+            waction = tr.env_action_to_world(tr.agent_to_env_action(agent.action_at(t)))
             # The PRE-advance obs: prediction i is the model's frame tau+i
             # (mbrl.py:508-517).
             preds.append(state.obs[0])
             state, reward = world.advance(self.gen, state, self.ensemble, waction, tr)
             rpred.append(reward[0])
+        preds, rpred = torch.stack(preds), torch.stack(rpred)
         truth = wsample.obs[0, tau:]
-        sq = (torch.stack(preds) - truth) ** 2
+        sq = (preds - truth) ** 2
         rtrue = sample.rewards[0, tau:]
-        err, rerr = torch.stack(
-            [torch.mean(sq), torch.mean(torch.abs(torch.stack(rpred) - rtrue))]
-        ).tolist()
-        return {"surrogate_open_loop_mse": err, "reward_model_error": rerr}
+        return {
+            "err": torch.mean(sq),
+            "hstep": torch.mean(sq, dim=(1, 2)),
+            "reward_err": torch.mean(torch.abs(rpred - rtrue)),
+            "truth": truth,
+            "preds": preds,
+            "actions": wsample.actions[0, tau:],
+            "rtrue": rtrue,
+            "rpred": rpred,
+        }
+
+    def evaluate_surrogate(self, horizon: Optional[int] = None) -> Dict[str, float]:
+        """Open-loop replay of one logged episode's actions through the world
+        model vs the logged truth (mbrl.py:474-527): a random completed
+        episode and a random start, then ``surrogate_rollout``.  Scores the
+        MSE in world space and the imagined-vs-true reward L1 error, and
+        hands the curves to the plots and the npz artifact."""
+        horizon = self.config.surrogate_eval_horizon if horizon is None else horizon
+        tau = self.tau
+        u = torch.rand((2,), generator=self.gen, device=self.device).cpu().numpy()
+        fill = self.replay.fill.cpu().numpy()
+        complete = self.replay.complete.cpu().numpy()
+        rows = np.where(complete & (fill >= tau + horizon))[0]
+        if len(rows) == 0:
+            return {}
+        row = int(rows[min(int(u[0] * len(rows)), len(rows) - 1)])
+        # Exclusive upper bound as the reference's
+        # np.random.randint(0, length - tau - horizon) (mbrl.py:485).
+        hi = max(int(fill[row]) - tau - horizon, 1)
+        start = min(int(u[1] * hi), hi - 1)
+
+        out = {k: _to_numpy(v) for k, v in
+               self.surrogate_rollout(row, start, horizon).items()}
+        self._save_plots(out)
+        self._save_surrogate_artifact(out)
+        return {"surrogate_open_loop_mse": float(out["err"]),
+                "reward_model_error": float(out["reward_err"])}
+
+    # ---------------------------------------------------- plots and artifacts
+    # The tensors reach the host on the main thread, before a job is queued;
+    # the worker renders and writes.  All of it is off at logging_freq <= 0.
+    def _save_plots(self, out: Dict[str, np.ndarray]) -> None:
+        """The open-loop comparison plots (reference VisPDECallback /
+        evaluate_surrogate pdeplot, mbrl.py:519-527) with the reward curves
+        (VisRewardDiff, mbrl/callbacks.py:72-106), and the h-step curve."""
+        if self.config.logging_freq <= 0:
+            return
+        d = os.path.join(self.config.run_dir, "plots")
+        iteration = self.iteration
+
+        def job():
+            from pdecontrol_tpu_torch.viz import plots
+
+            os.makedirs(d, exist_ok=True)
+            plots.pdeplot(out["truth"], out["preds"], out["actions"],
+                          rewards=out["rtrue"], rpred=out["rpred"]).save(
+                os.path.join(d, f"surrogate_iter{iteration}.png"))
+            plots.hstepplot(out["hstep"]).save(
+                os.path.join(d, f"hstep_iter{iteration}.png"))
+
+        self.viz.submit(job)
+
+    def _save_surrogate_artifact(self, out: Dict[str, np.ndarray]) -> None:
+        """Per-eval h-step battery artifact (reference EvalLogCallback,
+        callbacks.py:102-134): ground truth, open-loop predictions, actions,
+        reward curves and the h-step loss curve as one npz."""
+        if self.config.logging_freq <= 0:
+            return
+        d = os.path.join(self.config.run_dir, "evaluation")
+        iteration = self.iteration
+
+        def job():
+            os.makedirs(d, exist_ok=True)
+            np.savez_compressed(
+                os.path.join(d, f"surrogate_eval_{iteration}.npz"),
+                states=out["truth"], outputs=out["preds"], actions=out["actions"],
+                rewards=out["rtrue"], rpred=out["rpred"], hstep_mse=out["hstep"],
+            )
+
+        self.viz.submit(job)
+
+    def _save_eval_artifact(self, obs, actions, rewards: torch.Tensor) -> None:
+        """Eval-episode trajectories as an npz artifact (mbrl.py:467-472),
+        [T, B, ...] -> [B, T, ...]: episode-major like the reference dataset."""
+        if self.config.logging_freq <= 0:
+            return
+        d = os.path.join(self.config.run_dir, "evaluation")
+        iteration = self.iteration
+        arrays = {
+            "obs": _to_numpy(torch.stack(obs)),
+            "actions": _to_numpy(torch.stack(actions)),
+            "rewards": _to_numpy(rewards),
+        }
+
+        def job():
+            os.makedirs(d, exist_ok=True)
+            np.savez_compressed(os.path.join(d, f"eval_{iteration}.npz"),
+                                **{k: np.swapaxes(v, 0, 1) for k, v in arrays.items()})
+
+        self.viz.submit(job)
 
     # ------------------------------------------------------------------ main
     def learn(self) -> None:
         cfg = self.config
         self.logger.log({"start": self._start_time}, commit=False)
+        if self.finite is not None:
+            self.finite.iteration = self.iteration
 
-        # Random warmup (mbrl.py:388-391).
-        t0 = time.perf_counter()
-        warmup_steps = max(cfg.learning_starts // cfg.num_envs, 1)
-        self.collect(warmup_steps, random=True)
-        self._sync()
-        t_warmup = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.logger.log(self.evaluate_policy(), commit=False)
-        self.logger.log(
-            {"t_warmup_collect": round(t_warmup, 4),
-             "t_warmup_eval": round(time.perf_counter() - t0, 4)},
-            commit=False,
-        )
+        if not self.restored:
+            # Random warmup (mbrl.py:388-391).  A restored replay already
+            # holds it, and the restored generator is past it.
+            t0 = time.perf_counter()
+            warmup_steps = max(cfg.learning_starts // cfg.num_envs, 1)
+            self.collect(warmup_steps, random=True)
+            self._sync()
+            t_warmup = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self.logger.log(self.evaluate_policy(), commit=False)
+            self.logger.log(
+                {"t_warmup_collect": round(t_warmup, 4),
+                 "t_warmup_eval": round(time.perf_counter() - t0, 4)},
+                commit=False,
+            )
 
+        saved_at = self.iteration if self.restored else None
         while self.num_steps_sampled < cfg.total_timesteps - cfg.learning_starts:
-            self._run_iteration()
+            # A profiler trace of one representative iteration.
+            traced = bool(cfg.profile_dir) and self.iteration == 1
+            with (profiling.trace(cfg.profile_dir) if traced
+                  else contextlib.nullcontext()) as trace:
+                self._run_iteration()
+            if traced:
+                self.last_trace = trace
+                print(f"[profile] trace of iteration 1 ({trace['wall_s']:.2f} s) written "
+                      f"to {trace['path']} (export {trace['export_s']:.1f} s)", flush=True)
+
             if self.iteration % cfg.status_report_freq == 0:
                 print(self.logger.table(STATUS_HEADERS), flush=True)
 
+            if self.ckpt is not None and cfg.checkpoint_freq and (
+                self.iteration % cfg.checkpoint_freq == 0
+            ):
+                self.save_checkpoint()
+                saved_at = self.iteration
+
+        # One more snapshot at the end, unless the last iteration left one.
+        if self.ckpt is not None and cfg.checkpoint_freq and saved_at != self.iteration:
+            self.save_checkpoint()
+        if self.ckpt is not None:
+            self.ckpt.wait()  # the files must be on disk before exit
+        self.viz.drain()  # and so must the plots and artifacts
+
+    def save_checkpoint(self) -> None:
+        """Snapshot the training state at ``self.iteration``; returns once the
+        state is copied to host memory (the file is written behind it)."""
+        self._sync()
+        self.ckpt.save(self.iteration, C.controller_state(self))
+
     def _run_iteration(self) -> None:
         cfg = self.config
+        if self.finite is not None:
+            self.finite.iteration = self.iteration
         retrain = self.iteration % self.sur_train_freq == 0
         horizon = int(self.schedule(iteration=self.iteration))
         timings: Dict[str, float] = {}

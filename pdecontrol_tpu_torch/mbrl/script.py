@@ -24,7 +24,14 @@ asks for the CPU.
 ``--no_fuse_iteration``, ``--no_fuse_fit`` and
 ``--sequential_member_training`` are accepted and change nothing: the port
 always runs the unfused phase order, the per-epoch fit and member-by-member
-training.  Flags for features not ported yet raise.
+training.  ``--checkpoint_freq N`` snapshots the whole training state every N
+iterations into ``<run_dir>/checkpoints`` and ``--resume`` carries on from
+the last snapshot, appending to the same ``metrics.jsonl``;
+``--profile_dir`` writes a ``torch.profiler`` trace of iteration 1;
+``--debug_nans`` turns on autograd's anomaly detection and finiteness checks
+at the phase boundaries (each waits for the device).  Flags for features not
+ported yet (``--wandb``, a device mesh, the multi-process runtime, the other
+factories, losses and envs) raise.
 """
 
 from __future__ import annotations
@@ -43,7 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_platform_argument(p)
-    p.add_argument("--debug_nans", action="store_true", help="not yet ported")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first non-finite value seen at "
+                        "a phase boundary; anomaly detection in the backward passes")
     # Logging & evaluation
     p.add_argument("--project", type=str, default=None)
     p.add_argument("--name", type=str, default=None)
@@ -57,9 +66,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--status_report_freq", type=int, default=5)
     p.add_argument("--logging_freq", type=int, default=10)
     p.add_argument("--checkpoint_freq", type=int, default=0,
-                   help="> 0 is not yet ported")
-    p.add_argument("--resume", action="store_true", help="not yet ported")
-    p.add_argument("--profile_dir", type=str, default=None, help="not yet ported")
+                   help="iterations between snapshots of the training state (0 = off)")
+    p.add_argument("--resume", action="store_true",
+                   help="carry on from the last snapshot in <run_dir>/checkpoints")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of iteration 1 here")
     p.add_argument("--no_fuse_iteration", action="store_true",
                    help="accepted; the port always runs the unfused phases")
     p.add_argument("--no_fuse_fit", action="store_true",
@@ -200,22 +211,26 @@ def config_from_args(args: argparse.Namespace) -> MBPOConfig:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.debug_nans or args.coordinator_address:
+    if args.coordinator_address:
         raise NotImplementedError(
-            "not yet ported: " + ("--debug_nans" if args.debug_nans
-                                  else "the multi-process runtime (--coordinator_address)")
-        )
+            "not yet ported: the multi-process runtime (--coordinator_address)")
     config = config_from_args(args)
+
+    import torch
 
     from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController
 
-    mbpo = PDEModelBasedController(config, device=platform_device(args.platform))
+    mbpo = PDEModelBasedController(config, device=platform_device(args.platform),
+                                   debug_nans=args.debug_nans)
+    anomaly = torch.is_anomaly_enabled()
+    torch.autograd.set_detect_anomaly(anomaly or args.debug_nans)
     try:
         mbpo.learn()
     except Exception:
         print(traceback.format_exc(), file=sys.stderr)
         return 1
     finally:
+        torch.autograd.set_detect_anomaly(anomaly)
         mbpo.logger.finish()
     return 0
 

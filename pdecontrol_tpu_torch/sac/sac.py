@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -68,7 +68,11 @@ class SAC:
     """Agent definition: network sizes and the update rule."""
 
     def __init__(self, obs_shape, action_shape, config: SACConfig = SACConfig(),
-                 action_low: float = -1.0, action_high: float = 1.0, device=None):
+                 action_low: float = -1.0, action_high: float = 1.0, device=None,
+                 check: Optional[Callable] = None):
+        """``check``, if given, is called with every update's losses before
+        their backward passes (``utils.profiling.FiniteChecks``, the
+        ``--debug_nans`` option)."""
         self.obs_shape = tuple(obs_shape)
         self.action_shape = tuple(action_shape)
         self.config = config._replace(
@@ -78,6 +82,7 @@ class SAC:
         self.action_scale = (action_high - action_low) / 2.0
         self.action_bias = (action_high + action_low) / 2.0
         self.device = device
+        self.check = check
 
     # ------------------------------------------------------------------ init
     def init(self, dtype: torch.dtype = torch.float32) -> SACState:
@@ -148,6 +153,8 @@ class SAC:
         qf1_loss = torch.mean((q1 - next_q) ** 2)
         qf2_loss = torch.mean((q2 - next_q) ** 2)
         qf_loss = qf1_loss + qf2_loss
+        if self.check is not None:
+            self.check("the SAC update", qf_loss=qf_loss)
         _set_grads(state.critic.parameters(), qf_loss)
         state.critic_opt.step()
 
@@ -155,6 +162,8 @@ class SAC:
         pi, log_pi, _ = state.policy.sample(obs, generator, noise=noise_pi)
         q1_pi, q2_pi = state.critic(obs, pi)
         policy_loss = torch.mean(alpha * log_pi - torch.minimum(q1_pi, q2_pi))
+        if self.check is not None:
+            self.check("the SAC update", policy_loss=policy_loss)
         _set_grads(state.policy.parameters(), policy_loss)
         state.policy_opt.step()
 

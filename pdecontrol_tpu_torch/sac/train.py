@@ -29,18 +29,22 @@ import torch
 
 from pdecontrol_tpu_torch.data import replay as R
 from pdecontrol_tpu_torch.data.types import Sample
+from pdecontrol_tpu_torch.mbrl.agents import RandomAgent
 from pdecontrol_tpu_torch.mbrl.transform_sets import ControllerTransforms
 from pdecontrol_tpu_torch.sac.sac import SAC, SACConfig
 from pdecontrol_tpu_torch.utils.device import (
     add_platform_argument, entry_device, platform_device)
 from pdecontrol_tpu_torch.utils.logging import MetricsLogger
+from pdecontrol_tpu_torch.utils.profiling import FiniteChecks
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_platform_argument(p)
-    p.add_argument("--debug_nans", action="store_true", help="not yet ported")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first non-finite env step or "
+                        "SAC loss; anomaly detection in the backward passes")
     p.add_argument("--run_dir", type=str, default="runs/sac")
     p.add_argument("--env_id", type=str, default="KuramotoSivashinskyEnv-v0")
     p.add_argument("--env_config", type=str, default="{}")
@@ -73,6 +77,8 @@ class SACTrainer:
         from pdecontrol_tpu_torch.mbrl.controller import ENVS
 
         self.args = args
+        # --debug_nans: finiteness checks on every env step and SAC update.
+        self.finite = FiniteChecks() if args.debug_nans else None
         self.device = dev = entry_device(device)
         torch.manual_seed(args.seed)  # network initialisation
         self.gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -89,8 +95,11 @@ class SACTrainer:
             reward_scale=args.reward_scale,
         )
         self.sac = SAC(self.env.obs_shape, self.env.action_shape, sac_cfg,
-                       self.env.action_low, self.env.action_high, device=dev)
+                       self.env.action_low, self.env.action_high, device=dev,
+                       check=self.finite)
         self.sac_state = self.sac.init()
+        self.random_agent = RandomAgent(self.env.action_shape, self.env.action_low,
+                                        self.env.action_high)
 
         rows = max(args.capacity // self.env.max_episode_steps, args.num_envs + 2)
         self.replay = R.create(rows, self.env.max_episode_steps, args.num_envs,
@@ -118,15 +127,15 @@ class SACTrainer:
             with torch.no_grad():
                 raw_obs = env.observe(self.env_state)
                 if random:
-                    shape = (raw_obs.shape[0],) + env.action_shape
-                    u = torch.rand(shape, generator=self.gen, dtype=raw_obs.dtype,
-                                   device=self.device)
-                    action = env.action_low + u * (env.action_high - env.action_low)
+                    action = self.random_agent.select_action(None, raw_obs, self.gen)
                 else:
                     action = sac.select_action(
                         self.sac_state, self.tr.raw_to_agent_obs(raw_obs), self.gen)
                 env_action = self.tr.agent_to_env_action(action)
                 self.env_state, out = env.vec_step(self.env_state, env_action, self.pool)
+                if self.finite is not None:
+                    self.finite("collect (env step)", field=out.info["final_obs"],
+                                reward=out.reward)
                 self.tr = self.tr.replace(oscaling=self.tr.oscaling.update(out.obs)
                                           .update(out.info["final_obs"]))
                 R.write_step(self.replay, raw_obs, env_action, out.reward,
@@ -164,6 +173,8 @@ class SACTrainer:
 
         next_eval = steps_done
         while steps_done < args.total_timesteps:
+            if self.finite is not None:
+                self.finite.iteration = steps_done  # env steps, this loop's count
             rew, qf = self.run_chunk(args.chunk, False, args.updates_per_step)
             steps_done += args.chunk * args.num_envs
             rmean, qf = torch.stack([rew.mean().double(), qf.double()]).tolist()
@@ -184,13 +195,14 @@ class SACTrainer:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.debug_nans:
-        raise NotImplementedError("not yet ported: --debug_nans")
     trainer = SACTrainer(args, device=platform_device(args.platform))
     logger = MetricsLogger(args.run_dir, config=vars(args))
+    anomaly = torch.is_anomaly_enabled()
+    torch.autograd.set_detect_anomaly(anomaly or args.debug_nans)
     try:
         trainer.learn(logger)
     finally:
+        torch.autograd.set_detect_anomaly(anomaly)
         logger.finish()
     return 0
 

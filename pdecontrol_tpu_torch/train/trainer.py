@@ -93,12 +93,16 @@ def _clip_by_global_norm_(params: List[torch.Tensor], max_norm: float) -> None:
 
 
 class SurrogateTrainer:
-    def __init__(self, loss_fn: Callable, config: TrainConfig):
+    def __init__(self, loss_fn: Callable, config: TrainConfig,
+                 check: Optional[Callable] = None):
+        """``check``, if given, is called with every TBPTT step's loss
+        (``utils.profiling.FiniteChecks``, the ``--debug_nans`` option)."""
         assert config.tbtt > config.tau, (
             "Chunk size of TBPTT must be larger than warm-up length."
         )
         self.loss_fn = loss_fn
         self.config = config
+        self.check = check
 
     # ------------------------------------------------------------------ init
     def init(self, module: PDESurrogate) -> TrainerState:
@@ -121,6 +125,8 @@ class SurrogateTrainer:
                    lr: float) -> Tuple[TrainerState, Dict[str, torch.Tensor]]:
         elems, roll = self._losses(state.module, states, actions, und)
         loss = torch.mean(elems)
+        if self.check is not None:
+            self.check("the surrogate fit (TBPTT step)", train_loss=loss)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss.backward()

@@ -46,6 +46,10 @@ class MetricsLogger:
             backup = self.path + f".bak-{int(time.time())}"
             os.replace(self.path, backup)
             print(f"[logger] existing metrics stream moved to {backup}")
+        if append and os.path.exists(self.path):
+            # A resumed run goes on numbering its records where the stream ends.
+            with open(self.path) as f:
+                self._step = sum(1 for _ in f)
         self._file = open(self.path, "a" if append else "w", buffering=1)
         if use_wandb:
             try:

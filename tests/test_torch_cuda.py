@@ -7,7 +7,10 @@ tolerance of tests/test_torch_packed.py against the JAX kernel body, over
 one warp per row with the state in registers, so the cases cover every
 batch shape the main path launches (1 to 1024 rows) and grids of 32, 64
 and 128 points (1, 2 and 4 points per lane), and K2 also 96 and 256 (3 and
-8 points per lane).  Every test here needs a card
+8 points per lane).  The last group holds a checkpoint's round trip on the
+card: bit-equal tensors that come back on the card, a generator that goes on
+with the saved stream, and a resumed run that learns on.  Every test here
+needs a card
 and skips without one.  This file imports no JAX, so that it runs where JAX
 is not installed:
 
@@ -199,3 +202,115 @@ def test_limb_kernel_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(RuntimeError):
         pallas_ks_packed.ks_control_period_packed(ops48, u, u, 1e-3, 2, precision="bf16_3x")
     assert pallas_ks_packed.launch_count == before
+
+
+# ------------------------------------------------------ checkpoint and resume
+def _tiny_controller(run_dir, *flags, device=None):
+    """The MBPO controller at a tiny size (32 grid points: one point per lane
+    of K1; 8-step episodes; 2 envs), on the card unless told otherwise."""
+    import json
+
+    from pdecontrol_tpu_torch.mbrl import script
+    from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController
+
+    args = [
+        "--env_config", json.dumps({"n": 32, "cfg_steps": 5, "t_max": 0.04,
+                                    "transient_time": 0.5}),
+        "--num_envs", "2", "--total_timesteps", "16", "--learning_starts", "8",
+        "--pool_size", "8", "--surrogate_train_freq", "8", "--capacity", "256",
+        "--model_buffer_max_capacity", "64", "--model_buffer_store_iterations", "2",
+        "--policy_train_steps_per_sample", "1", "--model_rollouts_per_sample", "2",
+        "--model_rollouts_batch_size", "4", "--num_dynamics_models", "2",
+        "--policy_batch_size", "8", "--agent_eval_freq", "4", "--num_eval_episodes", "2",
+        "--surrogate_eval_horizon", "4", "--solver", "pallas", "--logging_freq", "0",
+        "--rollout_length_schedule", json.dumps({"scheduler": "ConstantLengthScheduler",
+                                                 "length": 2}),
+        "--training", json.dumps({"tau": 2, "initial": {"tbtt": 4, "patience": 2,
+                                                        "batch_size": 4},
+                                  "iterations": {"tbtt": 4, "patience": 1, "batch_size": 4}}),
+        "--trainer", json.dumps({"initial": {"min_steps": 2, "max_steps": 6},
+                                 "iterations": {"min_steps": 1, "max_steps": 3}}),
+        "--curriculum", json.dumps({"scheduler": "ConstantLengthScheduler", "length": 3}),
+        "--run_dir", str(run_dir), "--checkpoint_freq", "2", *flags,
+    ]
+    config = script.config_from_args(script.build_parser().parse_args(args))
+    return PDEModelBasedController(config, device=device)
+
+
+def _tensors(tree, path="state"):
+    """Every ``(path, tensor)`` of a nested snapshot."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tensors(v, f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tensors(v, f"{path}[{i}]")
+
+
+@pytest.fixture
+def stopped_and_resumed(dev, tmp_path):
+    """A run of 4 iterations on the card, stopped, and a new controller
+    built with ``--resume`` on its run directory."""
+    ctl = _tiny_controller(tmp_path / "run")
+    try:
+        ctl.learn()
+    finally:
+        ctl.logger.finish()
+    resumed = _tiny_controller(tmp_path / "run", "--resume", "--total_timesteps", "20")
+    yield ctl, resumed
+    resumed.logger.finish()
+
+
+def test_checkpoint_roundtrip_on_the_card_is_bit_equal(stopped_and_resumed):
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    ctl, resumed = stopped_and_resumed
+    assert ctl.iteration == 4 and resumed.restored and resumed.iteration == 4
+    saved = dict(_tensors(C.controller_state(ctl)))
+    back = dict(_tensors(C.controller_state(resumed)))
+    assert saved.keys() == back.keys() and len(saved) > 50
+    for path, t in saved.items():
+        assert back[path].dtype == t.dtype and back[path].device == t.device, path
+        assert torch.equal(back[path], t), path
+
+
+def test_restored_tensors_live_on_the_card(stopped_and_resumed):
+    """All but what PyTorch itself keeps on the host: a generator's state
+    and Adam's step counters."""
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    _, resumed = stopped_and_resumed
+    for path, t in _tensors(C.controller_state(resumed)):
+        on_host = path == "state['generator']" or (
+            "['state']" in path and path.endswith("['step']"))
+        assert t.device.type == ("cpu" if on_host else "cuda"), path
+    assert resumed.gen.device.type == "cuda"
+    for p in resumed.sac_state.policy.parameters():
+        assert p.device.type == "cuda"
+
+
+def test_restored_generator_continues_the_saved_stream(stopped_and_resumed):
+    ctl, resumed = stopped_and_resumed
+    for shape in ((3,), (2, 5), (1,)):
+        a = torch.rand(shape, generator=ctl.gen, device="cuda")
+        b = torch.rand(shape, generator=resumed.gen, device="cuda")
+        assert torch.equal(a, b)
+    assert torch.equal(torch.randint(0, 1000, (7,), generator=ctl.gen, device="cuda"),
+                       torch.randint(0, 1000, (7,), generator=resumed.gen, device="cuda"))
+
+
+def test_resumed_run_goes_on_learning_on_the_card(stopped_and_resumed, tmp_path):
+    import json
+
+    from pdecontrol_tpu_torch.ops import pallas_ks
+
+    _, resumed = stopped_and_resumed
+    before = pallas_ks.launch_count
+    resumed.learn()
+    assert resumed.iteration == 6 and resumed.ckpt.latest_step() == 6
+    assert pallas_ks.launch_count > before
+    records = [json.loads(line) for line in open(tmp_path / "run" / "metrics.jsonl")]
+    assert [r["iteration"] for r in records] == list(range(6))
+    assert "t_warmup_collect" not in records[4]

@@ -34,7 +34,9 @@ def test_sources_found():
     assert len(SOURCES) > 20
     assert (PORT / "csrc" / "ks_control_period.cu").exists()
     assert (PORT / "csrc" / "ks_control_period_limb.cu").exists()
-    for module in ("ops/pallas_ks_packed.py", "evaluation/bf16_gate.py", "sac/train.py"):
+    for module in ("ops/pallas_ks_packed.py", "evaluation/bf16_gate.py", "sac/train.py",
+                   "utils/checkpoint.py", "utils/asyncviz.py", "utils/waterfall.py",
+                   "viz/plots.py", "viz/report.py", "mbrl/agents.py"):
         assert PORT / module in SOURCES, module
 
 

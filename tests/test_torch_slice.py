@@ -195,10 +195,9 @@ def test_learn_smoke_through_cli_pallas_packed(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--checkpoint_freq", "200"], ["--resume"], ["--profile_dir", "x"],
     ["--data_parallel", "2"], ["--factory", "KSLatentLSTM"], ["--loss", "KSPhyPDELoss"],
     ["--env_id", "BurgersEnv-v0"], ["--model_parallel", "2"], ["--wandb"],
-    ["--debug_nans"], ["--coordinator_address", "localhost:1"],
+    ["--coordinator_address", "localhost:1"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
