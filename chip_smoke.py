@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases, each timed:
+Twelve phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
@@ -15,10 +15,11 @@ Nine phases, each timed:
      ``tests/test_pallas_ks.py``); 3 periods x 25 sub-steps through
      ``env.step`` at batch 8 and for one unbatched [64] state (rtol 3e-5,
      atol 3e-6, ``tests/test_env_solvers.py``); one full 250-sub-step period
-     at batch 10, 64 and 1024 (max abs error printed, held to rtol 1e-4,
-     atol 1e-5); then the reset pool's set-up time (920 K1 launches at
-     batch 64), and K1's time per period at batch 10, 64 and 1024 (CUDA
-     events), beside the plain version's time and the roofline bound;
+     at batch 10, 64, 100 and 1024, the batches of the paths below (max abs
+     error printed, held to rtol 1e-4, atol 1e-5); then the reset pool's
+     set-up time (920 K1 launches at batch 64), and K1's time per period at
+     the same four batches (CUDA events), beside the plain version's time
+     and the roofline bound;
   3. the main path — ``pdecontrol_tpu_torch.mbrl.script.main`` with the
      flagship arguments of ``runscripts/mbpo_ks.sh`` and ``--solver pallas``
      for a few iterations (see ``MAIN_ARGS``), then checks K1's launch count,
@@ -53,11 +54,27 @@ Nine phases, each timed:
   9. trace: the main path cut to iterations 0 and 1 with ``--profile_dir``;
      the trace file must exist, and its size, the wall time of the traced
      iteration and the share of it in which CUDA kernels ran are printed
-     (and the same kernel time against phase 3's untraced iteration 1).
+     (and the same kernel time against phase 3's untraced iteration 1);
+ 10. the latent path — ``runscripts/mbpo_ks_latent_r4.sh``: the main path
+     with ``--factory KSLatentConvolutionalLSTM`` and that script's
+     ``--trainer`` and ``--training`` (see ``LATENT_ARGS``), checked as
+     phase 3; K1 must launch as often as on the main path;
+ 11. the Burgers path — ``runscripts/mbpo_burgers.sh`` (``--env_id
+     BurgersEnv-v0 --reward_scale 500``; see ``BURGERS_ARGS`` for the cuts),
+     checked as phase 3; the Burgers solver is plain PyTorch, so neither
+     kernel may launch, and the seconds per env step are printed;
+ 12. offline — ``pdecontrol_tpu_torch.evaluation.generate`` writes the
+     dataset of ``runscripts/offline.sh`` (KS, 100 episodes of 400 steps,
+     through K1), then ``pdecontrol_tpu_torch.evaluation.evaluate`` runs
+     ``runscripts/capacity.sh``'s arguments for each of the five factories,
+     cut to one fold and two epochs; each fold's ``MSE``, ``nrmse_final``
+     and ``val_loss`` must be finite and its npz must hold the metric
+     battery's keys; one line per factory gives the train steps, the
+     seconds per TBPTT step and the ``MSE``.
 
-Every path of phases 3, 6, 7, 8 and 9 runs with the kernels' launch counts
+Every path of phases 3 and 6 to 12 runs with the kernels' launch counts
 set to 0 just before it, and they are read just after it; K1 runs the
-reset-pool transient of every path.  The script prints the card's name and power
+reset-pool transient of every KS path.  The script prints the card's name and power
 limit, one JSON line describing the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, or when any phase fails, it exits non-zero and
@@ -79,6 +96,9 @@ RUN_DIR = os.path.join(HERE, "runs", "chip_smoke")
 RUN_DIR_BF16 = os.path.join(HERE, "runs", "chip_smoke_bf16")
 RUN_DIR_SAC = os.path.join(HERE, "runs", "chip_smoke_sac")
 RUN_DIR_TRACE = os.path.join(HERE, "runs", "chip_smoke_trace")
+RUN_DIR_LATENT = os.path.join(HERE, "runs", "chip_smoke_latent")
+RUN_DIR_BURGERS = os.path.join(HERE, "runs", "chip_smoke_burgers")
+RUN_DIR_OFFLINE = os.path.join(HERE, "runs", "chip_smoke_offline")
 KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
@@ -183,6 +203,60 @@ SAC_ARGS = [
     "--learning_starts", "2000",
     "--run_dir", RUN_DIR_SAC,
 ]
+
+# Phase 10, runscripts/mbpo_ks_latent_r4.sh: the flagship run with the latent
+# conv-LSTM family, patience 10 in both trainer phases and the larger
+# per-retrain budget (max_steps 2000 / 750), which MAIN_ARGS' cut brings to
+# 20 / 10 as on the main path.
+LATENT_ARGS = with_args(
+    MAIN_ARGS, factory="KSLatentConvolutionalLSTM", run_dir=RUN_DIR_LATENT,
+    training=json.dumps({
+        "tau": 5,
+        "initial": {"tbtt": 10, "patience": 10, "batch_size": 64},
+        "iterations": {"tbtt": 10, "patience": 10, "batch_size": 64}}),
+)
+
+# Phase 11, runscripts/mbpo_burgers.sh (its --training, --trainer, --curriculum
+# and schedules are the flagship's) with MAIN_ARGS' cuts and no --solver: the
+# Burgers env has one solver, an eager loop of about 24 small launches per
+# Heun sub-step.  Cut further, so that the phase takes about a minute:
+# learning_starts 5000 -> 1000 (100 random steps of the 10 envs) with
+# total_timesteps 1060 (6 iterations), and t_max 100 -> 25 in --env_config
+# (100-step episodes, so that the warmup still completes one episode per env
+# and an evaluation takes 100 env steps, not 400).
+BURGERS_ARGS = with_args(
+    MAIN_ARGS[: MAIN_ARGS.index("--solver")] + ["--run_dir", RUN_DIR_BURGERS],
+    env_id="BurgersEnv-v0", learning_starts="1000", total_timesteps="1060",
+) + ["--reward_scale", "500", "--env_config", json.dumps({"t_max": 25.0})]
+# Env steps of the Burgers path at batch 10: the warmup, the initial
+# evaluation and iteration 0's, and one collect step per iteration.
+BURGERS_WARMUP_STEPS = 100
+BURGERS_ENV_STEPS = BURGERS_WARMUP_STEPS + 100 + 100 + 6
+
+# Phase 12, runscripts/offline.sh's dataset and runscripts/capacity.sh's
+# sweep, cut to one of the 5 folds and max_epochs 150 -> 2 (10 TBPTT steps
+# of batch 64 on windows of 10 + 30 steps, 2 validation batches and the
+# battery on the held-out fold's 370 windows).
+OFFLINE_DATA = os.path.join(RUN_DIR_OFFLINE, "ks_attractor.npz")
+OFFLINE_EPISODES, OFFLINE_EPISODE_STEPS, OFFLINE_WINDOW = 100, 400, 10 + 30
+FACTORIES = ("KSAutoRegConvolutionalLSTM", "KSAutoRegFullyConnectedLSTM",
+             "KSLatentConvolutionalLSTM", "KSLatentLSTM", "KSDelayCNNSurrogateFactory")
+GENERATE_ARGS = ["--env", "KuramotoSivashinskyEnv-v0", "--episodes", str(OFFLINE_EPISODES),
+                 "--config", json.dumps({"solver": "pallas"}), "--output", OFFLINE_DATA]
+# K1 launches of generate: the reset pool of 100 states (64 chains through
+# 800 + 40 periods) and one 400-step episode of the 100 envs.
+GENERATE_K1_LAUNCHES = 840 + 400
+
+
+def evaluate_args(factory):
+    return ["--env_id", "KuramotoSivashinskyEnv-v0", "--data", OFFLINE_DATA,
+            "--splits", "5", "--total", "0.5", "--target_length", "30",
+            "--factory", factory,
+            "--training", json.dumps({"tbtt": 1000000, "tau": 10, "batch_size": 64,
+                                      "patience": 50}),
+            "--trainer", json.dumps({"max_epochs": 2, "gradient_clip_val": 0.5}),
+            "--max_folds", "1",
+            "--output", os.path.join(RUN_DIR_OFFLINE, f"capacity_{factory}")]
 
 
 def phase(name: str):
@@ -340,7 +414,8 @@ def check_kernel(errors):
                 compare(label + " obs", ok_.obs, op_.obs, 3e-5, 3e-6)
                 compare(label + " reward", ok_.reward, op_.reward, 3e-5, 3e-6)
 
-        for b in (10, 64, 1024):
+        # B=100 is the offline dataset's batch (phase 12), the others the MBPO paths'.
+        for b in (10, 64, 100, 1024):
             u = tensor(rng.uniform(-1, 1, (b, 64)))
             phi = tensor(rng.uniform(-0.5, 0.5, (b, 64)))
             got = pallas_ks.ks_control_period(ops, u, phi, 1e-3, 250, objective)
@@ -359,7 +434,7 @@ def check_kernel(errors):
           f"B=64): {time.perf_counter() - t:.4f} s", flush=True)
 
     timings = {}
-    for b in (10, 64, 1024):
+    for b in (10, 64, 100, 1024):
         u = tensor(rng.uniform(-1, 1, (b, 64)))
         phi = tensor(rng.uniform(-0.5, 0.5, (b, 64)))
 
@@ -620,6 +695,15 @@ ARTIFACT_KEYS = {
     "eval_0.npz": {"obs", "actions", "rewards"},
     "surrogate_eval_0.npz": {"states", "outputs", "actions", "rewards", "rpred", "hstep_mse"},
 }
+# Keys of ``fold{k}_metrics.npz`` (``pdecontrol_tpu/train/metrics.py``), KS.
+BATTERY_KEYS = (
+    {"MSE", "states", "outputs", "actions"}
+    | {f"{m}{s}" for m in ("l1_loss", "l2_loss", "l1_loss_scaled", "l2_loss_scaled", "nrmse")
+       for s in ("", "_rews")}
+    | {f"{m}-derivative-{d}" for m in ("l1_loss_derivs", "l2_loss_derivs",
+                                       "l1_loss_scaled_derivs", "l2_loss_scaled_derivs",
+                                       "nrms_derivs") for d in range(3)}
+)
 PLOTS = {f"{stage}_{kind}_iter0.png" for stage in ("train", "val")
          for kind in ("vis", "spatial")} | {"surrogate_iter0.png", "hstep_iter0.png"}
 
@@ -660,7 +744,8 @@ def check_outputs(run_dir, steps):
 
 
 def run_mbpo(args, run_dir, kernels):
-    """Phases 3 and 6: the port's MBPO CLI entry point for 6 iterations."""
+    """Phases 3, 6, 10 and 11: the port's MBPO CLI entry point for 6
+    iterations."""
     from pdecontrol_tpu_torch.mbrl import script
 
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -686,6 +771,79 @@ def run_mbpo(args, run_dir, kernels):
     for k, vals in seen.items():
         print(f"   {k}: {vals}", flush=True)
     return counts
+
+
+def run_burgers():
+    """Phase 11: the MBPO CLI on the Burgers env; neither kernel launches."""
+    t = time.perf_counter()
+    counts = run_mbpo(BURGERS_ARGS, RUN_DIR_BURGERS, ())
+    wall = time.perf_counter() - t
+    if counts != {"K1": 0, "K2": 0}:
+        raise AssertionError(f"the Burgers path launched a KS kernel: {counts}")
+    records = [json.loads(line) for line in open(os.path.join(RUN_DIR_BURGERS,
+                                                              "metrics.jsonl"))]
+    # The warmup's env steps at batch 10 (the host clock around a phase that
+    # ends in a device synchronisation).
+    per_step = records[0]["t_warmup_collect"] / BURGERS_WARMUP_STEPS
+    print(f"   Burgers env step (250 Heun sub-steps, B=10, replay write included): "
+          f"{per_step:.4f} s; {BURGERS_ENV_STEPS} env steps of {wall:.2f} s", flush=True)
+
+
+def run_offline():
+    """Phase 12: generate the offline dataset through K1, then one fold of
+    the capacity sweep for each of the five factories."""
+    import numpy as np
+
+    from pdecontrol_tpu_torch.evaluation import evaluate, generate
+
+    shutil.rmtree(RUN_DIR_OFFLINE, ignore_errors=True)
+    os.makedirs(RUN_DIR_OFFLINE)
+
+    def both():
+        print("   generate args: " + " ".join(GENERATE_ARGS), flush=True)
+        t = time.perf_counter()
+        if generate.main(GENERATE_ARGS) != 0:
+            raise RuntimeError("evaluation.generate failed")
+        with np.load(OFFLINE_DATA) as z:
+            shapes = {k: z[k].shape for k in z.files}
+            want = (OFFLINE_EPISODES, OFFLINE_EPISODE_STEPS, 1)
+            if shapes["obs"][:3] != want or shapes["actions"] != want + (4,):
+                raise AssertionError(f"the dataset holds {shapes}")
+            if not all(np.isfinite(z[k]).all() for k in ("obs", "nxtobs", "rewards")):
+                raise AssertionError("the dataset holds non-finite values")
+        print(f"   generate: {shapes['obs']} obs in {time.perf_counter() - t:.2f} s "
+              f"(set-up and the npz write included)", flush=True)
+        for factory in FACTORIES:
+            args = evaluate_args(factory)
+            if factory == FACTORIES[0]:
+                print("   evaluate args: " + " ".join(args), flush=True)
+            t = time.perf_counter()
+            if evaluate.main(args) != 0:
+                raise RuntimeError(f"evaluation.evaluate failed for {factory}")
+            wall = time.perf_counter() - t
+            out = args[args.index("--output") + 1]
+            (fold,) = json.load(open(os.path.join(out, "summary.json")))
+            bad = {k: fold[k] for k in ("MSE", "nrmse_final", "val_loss")
+                   if not math.isfinite(fold[k])}
+            if bad:
+                raise AssertionError(f"{factory}: {bad}")
+            with np.load(os.path.join(out, "fold0_metrics.npz")) as z:
+                missing = BATTERY_KEYS - set(z.files)
+                if missing or z["nrmse"].shape != (OFFLINE_WINDOW,):
+                    raise AssertionError(f"{factory}: fold0_metrics.npz lacks "
+                                         f"{sorted(missing)}, nrmse {z['nrmse'].shape}")
+                windows = z["states"].shape[0]
+            print(f"   {factory}: {fold['train_steps']} train steps, "
+                  f"{fold['train_time'] / fold['train_steps']:.4f} s per TBPTT step (B=64, "
+                  f"{OFFLINE_WINDOW} steps; the fit's validation batches included), MSE "
+                  f"{fold['MSE']:.6f}, nrmse_final {fold['nrmse_final']:.6f}, val_loss "
+                  f"{fold['val_loss']:.6f}; battery on {windows} windows; {wall:.2f} s in all",
+                  flush=True)
+
+    _, counts = counted_run("generate + 5 x evaluate", both)
+    if counts != {"K1": GENERATE_K1_LAUNCHES, "K2": 0}:
+        raise AssertionError(f"the offline path launched {counts}, expected K1 "
+                             f"{GENERATE_K1_LAUNCHES} times and K2 never")
 
 
 def run_sac():
@@ -906,6 +1064,21 @@ def main() -> int:
     t0 = phase("9 trace (--profile_dir)")
     run_trace()
     done("9 trace (--profile_dir)", t0)
+
+    t0 = phase("10 latent path (KSLatentConvolutionalLSTM, K1)")
+    latent_counts = run_mbpo(LATENT_ARGS, RUN_DIR_LATENT, ("K1",))
+    if latent_counts != {"K1": MAIN_K1_LAUNCHES, "K2": 0}:
+        raise AssertionError(f"the latent path launched {latent_counts}, expected K1 "
+                             f"{MAIN_K1_LAUNCHES} times and K2 never")
+    done("10 latent path (KSLatentConvolutionalLSTM, K1)", t0)
+
+    t0 = phase("11 Burgers path (plain solver)")
+    run_burgers()
+    done("11 Burgers path (plain solver)", t0)
+
+    t0 = phase("12 offline (generate, evaluate x 5 factories)")
+    run_offline()
+    done("12 offline (generate, evaluate x 5 factories)", t0)
 
     print(json.dumps({"kernels": [
         {

@@ -1,7 +1,8 @@
 """pdecontrol_tpu_torch — the PyTorch / CUDA port of ``pdecontrol_tpu``.
 
-The same model-based PDE control stack (KS environment, CNN-LSTM surrogate
-ensemble trained with TBPTT, SAC, the MBPO loop) written in PyTorch for one
+The same model-based PDE control stack (KS and Burgers environments, the
+five surrogate families trained with TBPTT, SAC, the MBPO loop, the offline
+dataset and k-fold evaluation CLIs) written in PyTorch for one
 NVIDIA H100.  The layout mirrors ``pdecontrol_tpu/``: one file for each JAX
 file ported, with the same public names.  The JAX package is the reference;
 ``tests/test_torch_*.py`` hold the two to the same numbers on the CPU.

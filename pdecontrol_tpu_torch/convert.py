@@ -14,8 +14,10 @@ of the port's modules.  Layout rules:
     LayerNorm ``weight``/``bias`` of shape ``(H,)``;
   * flax submodule names map onto the port's attributes: ``block_l{i}`` ->
     ``blocks.{i}``, ``Conv_0`` -> ``conv``, ``SpatialLayerNorm_0`` ->
-    ``norm``, and a ``ConvTranspose_0`` holds the ``DeConvBlock``'s own
-    weight and bias.
+    ``norm``, a ``ConvTranspose_0`` holds the ``DeConvBlock``'s own weight
+    and bias, and of an ``MLP`` ``linear_l{i}`` -> ``layers.{i}`` with its
+    ``Dense_0`` -> ``linear``.  The cells' ``wx`` and ``wh`` and the
+    ``DelayCell``'s ``fwd`` keep their names.
 """
 
 from __future__ import annotations
@@ -36,9 +38,11 @@ def _tensor(x) -> torch.Tensor:
 def _module_path(names: List[str]) -> List[str]:
     out = []
     for name in names:
-        m = re.fullmatch(r"block_l(\d+)", name)
+        m = re.fullmatch(r"(block|linear)_l(\d+)", name)
         if m:
-            out += ["blocks", m.group(1)]
+            out += ["blocks" if m.group(1) == "block" else "layers", m.group(2)]
+        elif name == "Dense_0":
+            out.append("linear")
         elif name == "Conv_0":
             out.append("conv")
         elif name == "SpatialLayerNorm_0":
@@ -75,7 +79,7 @@ def _walk(tree: Mapping, names: List[str], out: StateDict) -> None:
 
 
 def state_dict(params: Mapping) -> StateDict:
-    """One module's parameters: a ``KSAutoRegConvolutionalLSTM`` surrogate
+    """One module's parameters: a surrogate of any of the five factories
     (``PDESurrogate``), the SAC ``GaussianPolicy`` (``linear1``,
     ``linear2``, ``mean``, ``log_std``) or the twin ``QNetwork``
     (``linear1`` .. ``linear6``)."""

@@ -275,11 +275,19 @@ class GaussianForcing(Transform):
         sigma: float,
         dtype: torch.dtype = torch.float32,
         device: Optional[torch.device] = None,
+        zero_mean: bool = False,
     ) -> "GaussianForcing":
+        """``zero_mean=True`` subtracts each jet's spatial mean from its row
+        of the forcing matrix, which makes the actuation conserve momentum
+        (the Burgers env needs it to stay well-posed under sustained
+        forcing; the KS env keeps the reference's raw jets).  The exact
+        inverse is computed from the modified matrix."""
         from pdecontrol_tpu_torch.ops.kuramoto import gaussian_forcing_matrix
 
         x = np.linspace(0.0, length - length / n, n, dtype=np.float64)
         mat = gaussian_forcing_matrix(x, np.asarray(xi_rel), sigma, length)
+        if zero_mean:
+            mat = mat - mat.mean(axis=1, keepdims=True)
         jet_idx = (n * np.asarray(xi_rel, dtype=np.float64)).astype(np.int64)
         inv = np.linalg.inv(mat[:, jet_idx])
         return cls(

@@ -45,6 +45,7 @@ import torch
 
 from pdecontrol_tpu_torch.data import replay as R
 from pdecontrol_tpu_torch.data.types import Sample
+from pdecontrol_tpu_torch.envs import burgers as burgers_env
 from pdecontrol_tpu_torch.envs import kuramoto as ks_env
 from pdecontrol_tpu_torch.mbrl.agents import ActionRepeatAgent, RandomAgent
 from pdecontrol_tpu_torch.mbrl.config import MBPOConfig
@@ -68,6 +69,7 @@ from pdecontrol_tpu_torch.utils.logging import MetricsLogger
 
 ENVS = {
     "KuramotoSivashinskyEnv-v0": (ks_env.KuramotoSivashinsky, ks_env.make_reset_pool),
+    "BurgersEnv-v0": (burgers_env.Burgers, burgers_env.make_reset_pool),
 }
 
 STATUS_HEADERS = [
@@ -89,18 +91,14 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
 
 
 def check_ported(cfg: MBPOConfig) -> None:
-    """Raise for every option that names a feature the port lacks."""
+    """Raise for every option that names a feature the port lacks: a device
+    mesh and wandb.  An env, factory or loss name that no registry holds is
+    a ``KeyError`` where it is looked up, as in the JAX package."""
     todo = []
-    if cfg.env_id not in ENVS:
-        todo.append(f"env {cfg.env_id!r}")
     if cfg.data_parallel * cfg.model_parallel > 1:
         todo.append(f"a {cfg.data_parallel}x{cfg.model_parallel} device mesh")
     if cfg.use_wandb:
         todo.append("wandb logging")
-    if cfg.factory not in factories.REGISTRY:
-        todo.append(f"factory {cfg.factory!r}")
-    if cfg.loss != "MSELoss":
-        todo.append(f"loss {cfg.loss!r}")
     if todo:
         raise NotImplementedError("not yet ported: " + "; ".join(todo))
 
@@ -116,6 +114,8 @@ class PDEModelBasedController:
         torch.manual_seed(cfg.seed)  # module initialisation
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
+        if cfg.env_id not in ENVS:
+            raise KeyError(f"unknown env {cfg.env_id!r}; have {sorted(ENVS)}")
         env_cls, make_pool = ENVS[cfg.env_id]
         self.env = env_cls.create(**cfg.env_config, device=dev)
 

@@ -29,9 +29,11 @@ iterations into ``<run_dir>/checkpoints`` and ``--resume`` carries on from
 the last snapshot, appending to the same ``metrics.jsonl``;
 ``--profile_dir`` writes a ``torch.profiler`` trace of iteration 1;
 ``--debug_nans`` turns on autograd's anomaly detection and finiteness checks
-at the phase boundaries (each waits for the device).  Flags for features not
-ported yet (``--wandb``, a device mesh, the multi-process runtime, the other
-factories, losses and envs) raise.
+at the phase boundaries (each waits for the device).  ``--factory`` takes
+each of the five families, ``--env_id`` the KS and the Burgers env (which
+takes no ``--solver``), ``--loss`` ``MSELoss``, ``KSPhyPDELoss``,
+``BurgersPhyPDELoss`` or ``PhyPDELoss``.  Flags for features not ported
+(``--wandb``, a device mesh, the multi-process runtime) raise.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 
 1-D conv / deconv / NVAE-style residual blocks over ``[B, C, H]`` tensors,
 with **circular padding** on the convolutions for the periodic domain and a
-LayerNorm over the spatial axis.  Two layout points carry the JAX
+LayerNorm over the spatial axis, and the fully connected ``LinearBlock`` /
+``MLP`` of the LSTM and delay families.  Two layout points carry the JAX
 parameters over exactly (see ``convert.py``):
 
   * flax's ``padding="CIRCULAR"`` wraps ``((k-1)//2, k//2)`` points onto the
@@ -21,7 +22,7 @@ infers at ``init``.
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -202,6 +203,53 @@ class ConvNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.blocks:
             x = block(x)
+        return x
+
+
+class LinearBlock(nn.Module):
+    """Flatten -> Linear -> activation -> reshape (reference ``LinearBlock``,
+    fcnn.py:5-29).  ``[B, Cin, Hin] -> [B, out_channels, out_size]``;
+    ``in_features = Cin * Hin``.  Initialised as flax's ``Dense``: LeCun
+    normal weight, zero bias."""
+
+    def __init__(self, in_features: int, out_channels: int, out_size: int,
+                 activation: Activation = F.silu):
+        super().__init__()
+        self.out_channels, self.out_size = out_channels, out_size
+        self.linear = nn.Linear(in_features, out_channels * out_size)
+        lecun_normal_(self.linear.weight, in_features)
+        nn.init.zeros_(self.linear.bias)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        y = self.activation(self.linear(x.reshape(b, -1)))
+        return y.reshape(b, self.out_channels, self.out_size)
+
+
+class MLP(nn.Module):
+    """Sequence of LinearBlocks; ``sizes`` holds ``(out_channels, out_size)``
+    per layer.  ``[B, in_channels, size] -> [B, *sizes[-1]]``."""
+
+    def __init__(self, in_channels: int, size: int,
+                 sizes: Sequence[Tuple[int, int]], activations: Sequence[Activation]):
+        super().__init__()
+        layers = []
+        features = in_channels * size
+        for (c, h), act in zip(sizes, activations):
+            layers.append(LinearBlock(features, c, h, act))
+            features = c * h
+        self.layers = nn.ModuleList(layers)
+        self.out_channels, self.out_size = sizes[-1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class IdentityModule(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
 

@@ -7,6 +7,14 @@ truth and the Euler residual update anchors on the ground-truth state,
 ``u_{t+1} = u_t + delta * dscale(dec(latent))`` (surrogate.py:100-103);
 afterwards the model free-runs on its own predictions (surrogate.py:109-119).
 
+**Latent** rollout (surrogate.py:136-206): the integration happens in latent
+space, ``z_{t+1} = z_t + delta * f(z, a)``, with a decode to state per step;
+the per-step deltas are recovered afterwards by differencing the decoded
+trajectory (surrogate.py:197-198).  The integrated latent starts at the
+encoding of the first warmup state and is *not* re-anchored on the ground
+truth during the warmup: teacher forcing only overwrites the cell's hidden
+state.
+
 The JAX package runs the rollout as one ``lax.scan`` with per-step
 teacher-forcing and self-forcing masks.  Both masks are the same for every
 batch element at every call site (steps ``< Tw`` are teacher-forced; the
@@ -33,6 +41,17 @@ from pdecontrol_tpu_torch.envs.transforms import Identity, Transform
 from pdecontrol_tpu_torch.models.blocks import batched_apply
 
 AUTOREG = "autoreg"
+LATENT = "latent"
+
+
+def align_actions(times: np.ndarray, delta: float) -> np.ndarray:
+    """Host-side action->timepoint index map (surrogate.py:88-89): the
+    reference maps action timestamps onto solver timepoints with
+    ``searchsorted``.  Every in-loop grid is uniform and 1:1; this is the
+    general mapping, for offline evaluation."""
+    times = np.asarray(times).reshape(-1)
+    timepoints = np.arange(times[0], times[-1] + delta, delta)
+    return np.searchsorted(times, timepoints, side="right") - 1
 
 
 class PDESurrogate(nn.Module):
@@ -43,8 +62,8 @@ class PDESurrogate(nn.Module):
                  action_encoder: nn.Module, cell: nn.Module, delta: float,
                  mode: str = AUTOREG):
         super().__init__()
-        if mode != AUTOREG:
-            raise NotImplementedError(f"surrogate mode {mode!r} is not yet ported")
+        if mode not in (AUTOREG, LATENT):
+            raise ValueError(f"unknown mode {mode!r}")
         self.state_encoder = state_encoder
         self.state_decoder = state_decoder
         self.action_encoder = action_encoder
@@ -96,6 +115,10 @@ class PDESurrogate(nn.Module):
         if hidden is None:
             hidden = self.cell.init_carry(b, states.dtype, states.device)
 
+        if self.mode == LATENT:
+            return self._latent_rollout(states, lstates, lactions, dscaling, hidden,
+                                        tw, re_flags)
+
         prev = states[:, 0]
         outputs, outdeltas, outlats, inlats = [], [], [], []
         for t in range(t_total):
@@ -140,6 +163,44 @@ class PDESurrogate(nn.Module):
             inlatents=torch.stack(inlats, 1),
             outlatents=torch.stack(outlats, 1),
             deltas=torch.stack(outdeltas, 1),
+            hidden=hidden,
+        )
+
+    def _latent_rollout(self, states, lstates, lactions, dscaling: Transform,
+                        hidden, tw: int, re_flags: np.ndarray) -> ModelRollout:
+        inlatent, prev_out = lstates[:, 0], states[:, 0]
+        outputs, outlats, inlats = [], [], []
+        for t in range(lactions.shape[1]):
+            tf, re = t < tw, bool(re_flags[t])
+            if re:
+                # Self-forcing: re-anchor the integrated latent on the
+                # re-encoding of the previous decoded output (detached, but
+                # with encoder-weight gradients), which the reference's
+                # repeated 1-step world rollouts do at every call
+                # (surrogate.py:158-160), and detach the carried hidden.
+                inlatent = self.state_encoder(prev_out.detach())
+                hidden = tuple(h.detach() for h in hidden)
+            # Teacher forcing overwrites the cell's hidden only; the
+            # integrated latent is left as it is.
+            lstate_in = lstates[:, t] if tf else inlatent
+            hidden, outlat = self.cell(hidden, lactions[:, t], lstate_in, tf or re)
+            nxtlatent = inlatent + self.delta * outlat
+            prev_out = self.state_decoder(nxtlatent)
+            outputs.append(prev_out)
+            outlats.append(outlat)
+            inlats.append(lstate_in)
+            inlatent = nxtlatent
+
+        outputs = torch.stack(outputs, 1)
+        # Per-step deltas recovered from the decoded trajectory
+        # (surrogate.py:197-198), mapped back through the delta scaling.
+        augmented = torch.cat([states[:, :1], outputs], dim=1)
+        deltas = dscaling.inverse(torch.diff(augmented, dim=1) / self.delta)
+        return ModelRollout(
+            outputs=outputs,
+            inlatents=torch.stack(inlats, 1),
+            outlatents=torch.stack(outlats, 1),
+            deltas=deltas,
             hidden=hidden,
         )
 

@@ -1,5 +1,5 @@
-"""Finite-difference stencils of the KS solver as periodic taps and
-circulant matrices.
+"""Finite-difference stencils of the KS and Burgers solvers as periodic taps
+and circulant matrices.
 
 A copy of ``pdecontrol_tpu.ops.stencils`` (plain numpy), kept in the port so
 that importing it never runs the JAX package's ``__init__``.  The reference
@@ -61,6 +61,21 @@ FOURTH_DERIV_CENTRAL_6: Mapping[int, float] = {
     2: 169.0 / 60.0,
     3: -2.0 / 5.0,
     4: 7.0 / 240.0,
+}
+
+#: Second-order central first derivative (Burgers physics loss, phyloss.py:39).
+FIRST_DERIV_CENTRAL_2: Mapping[int, float] = {
+    -1: -1.0 / 2.0,
+    1: 1.0 / 2.0,
+}
+
+#: Fourth-order central second derivative (Burgers physics loss, phyloss.py:40).
+SECOND_DERIV_CENTRAL_4: Mapping[int, float] = {
+    -2: -1.0 / 12.0,
+    -1: 4.0 / 3.0,
+    0: -5.0 / 2.0,
+    1: 4.0 / 3.0,
+    2: -1.0 / 12.0,
 }
 
 

@@ -1,7 +1,8 @@
 """Model-free SAC baseline on the real PDE env (port of
 ``pdecontrol_tpu/sac/train.py``).
 
-The ECC'24 paper's comparison arm: SAC trained on real KS transitions only,
+The ECC'24 paper's comparison arm: SAC trained on real transitions only (of
+the KS env, or of the Burgers env with ``--env_id BurgersEnv-v0``),
 collect-then-update over the batched env, with env, agent and replay on
 one device.  A random warmup of ``--learning_starts`` steps, then per env
 step of all ``--num_envs`` envs ``--updates_per_step`` SAC updates on

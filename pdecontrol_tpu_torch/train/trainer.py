@@ -4,7 +4,9 @@ curriculum (port of ``pdecontrol_tpu/train/trainer.py``; reference
 
   * ``train_step`` == ``training_step`` (training.py:64-130): the chunked
     TBPTT loop is ONE rollout whose ``reencode`` schedule self-forces (and
-    detaches) at every chunk boundary; the loss is on per-step deltas.
+    detaches) at every chunk boundary; the loss is on per-step deltas
+    (AutoReg modules) or on the decoded states (Latent modules)
+    (training.py:49-55,106-109).
   * ``val_step`` == ``validation_step`` (training.py:132-174): a full
     free-run from a tau warmup; the early-stopping / elite score is the MSE
     in *unscaled* space (training.py:157-164).
@@ -35,7 +37,7 @@ import torch
 
 from pdecontrol_tpu_torch.data import replay as R
 from pdecontrol_tpu_torch.envs.transforms import Normalize, SampleTransform
-from pdecontrol_tpu_torch.models.surrogate import PDESurrogate
+from pdecontrol_tpu_torch.models.surrogate import AUTOREG, PDESurrogate
 
 
 class TrainConfig(NamedTuple):
@@ -112,14 +114,19 @@ class SurrogateTrainer:
 
     # ------------------------------------------------------------- core math
     def _losses(self, module: PDESurrogate, states, actions, und: Normalize):
-        """Elementwise training loss tensor [B, T-1, C, H] on the deltas."""
+        """Elementwise training loss tensor: [B, T-1, C, H] on the deltas of
+        an AutoReg module, [B, T, C, H] on the decoded states of a Latent
+        one."""
         cfg = self.config
         mask = tbtt_reencode_mask(actions.shape[1], cfg.tbtt)
         roll = module.rollout(states[:, : cfg.tau], actions, dscaling=und.inv,
                               reencode=mask)
-        out = roll.deltas[:, :-1]
-        target = und.apply(torch.diff(states, dim=1) / module.delta)
-        return self.loss_fn(out, target), roll
+        if module.mode == AUTOREG:
+            out = roll.deltas[:, :-1]
+            target = und.apply(torch.diff(states, dim=1) / module.delta)
+            return self.loss_fn(out, target), roll
+        decoded = torch.cat([states[:, :1], roll.outputs[:, :-1]], dim=1)
+        return self.loss_fn(decoded, states), roll
 
     def train_step(self, state: TrainerState, states, actions, und: Normalize,
                    lr: float) -> Tuple[TrainerState, Dict[str, torch.Tensor]]:

@@ -152,7 +152,7 @@ class CheckpointManager:
 
 
 # ------------------------------------------------------------ controller
-def _fields(obj) -> Dict[str, Any]:
+def tensor_fields(obj) -> Dict[str, Any]:
     """The tensor-valued fields of a dataclass (a transform, a replay)."""
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
             if isinstance(getattr(obj, f.name), torch.Tensor)}
@@ -164,7 +164,7 @@ def _transform_state(tr) -> Dict[str, Any]:
     out = {}
     for f in dataclasses.fields(tr):
         t = getattr(tr, f.name)
-        out[f.name] = _fields(getattr(t, "base", None) or t)
+        out[f.name] = tensor_fields(getattr(t, "base", None) or t)
     return out
 
 
@@ -204,8 +204,8 @@ def controller_state(ctl) -> Dict[str, Any]:
             "updates": sac.updates,
         },
         "transforms": _transform_state(ctl.tr),
-        "replay": _fields(ctl.replay),
-        "world_replay": _fields(ctl.world_replay),
+        "replay": tensor_fields(ctl.replay),
+        "world_replay": tensor_fields(ctl.world_replay),
         "env_state": {"u": ctl.env_state.u, "step": ctl.env_state.step},
         "pool": ctl.pool,
         "generator": ctl.gen.get_state(),

@@ -9,7 +9,10 @@ batch shape the main path launches (1 to 1024 rows) and grids of 32, 64
 and 128 points (1, 2 and 4 points per lane), and K2 also 96 and 256 (3 and
 8 points per lane).  The last group holds a checkpoint's round trip on the
 card: bit-equal tensors that come back on the card, a generator that goes on
-with the saved stream, and a resumed run that learns on.  Every test here
+with the saved stream, and a resumed run that learns on.  The group after it
+holds each surrogate family's rollout and a Burgers control period on the
+card to the same computation on the CPU (rtol 3e-5, atol 3e-6, the float32
+tolerance of tests/test_env_solvers.py).  Every test here
 needs a card
 and skips without one.  This file imports no JAX, so that it runs where JAX
 is not installed:
@@ -314,3 +317,91 @@ def test_resumed_run_goes_on_learning_on_the_card(stopped_and_resumed, tmp_path)
     records = [json.loads(line) for line in open(tmp_path / "run" / "metrics.jsonl")]
     assert [r["iteration"] for r in records] == list(range(6))
     assert "t_warmup_collect" not in records[4]
+
+
+# --------------------------------------- the families and Burgers on the card
+FACTORIES = ["KSAutoRegConvolutionalLSTM", "KSAutoRegFullyConnectedLSTM",
+             "KSLatentConvolutionalLSTM", "KSLatentLSTM", "KSDelayCNNSurrogateFactory"]
+
+
+@pytest.mark.parametrize("reencode", [None, True], ids=["free_run", "reencode_all"])
+@pytest.mark.parametrize("factory", FACTORIES)
+def test_family_rollout_on_the_card_matches_the_cpu(dev, factory, reencode):
+    """The factory widths (N = 64), a 3-step warmup and 3 more steps, held to
+    the CPU's float32 rollout at rtol 3e-5 / atol 3e-6.  Two float32 facts
+    of the LATENT families shape the comparison (NVIDIA H100 80GB HBM3):
+
+    * their ``deltas`` are differences of decoded outputs over ``delta``, so
+      they carry the outputs' rounding times ``2 / delta``; they are held in
+      the outputs' units (times ``delta``);
+    * ``KSLatentConvolutionalLSTM`` re-encoding every step sends its output
+      through the random weights' decode-encode round trip, which grows a
+      last-bit difference from step to step: the CPU's own float32 outputs
+      are 1e-6 to 2e-6 off its float64 ones at the first step and over 1e-4
+      at the sixth.  That case is held against the CPU's float64 rollout instead,
+      step by step: the card may be off it by twice what the CPU's float32
+      rollout is at that step (the final hidden state: at the last), on top
+      of the plain tolerance (measured: at most 1.92 times).  ``-s`` prints
+      both errors by step."""
+    from pdecontrol_tpu_torch.models import factories
+    from pdecontrol_tpu_torch.models.surrogate import LATENT
+
+    torch.manual_seed(3)
+    module = factories.make(factory, delta=0.25, N=64)
+    rng = np.random.default_rng(4)
+    states = torch.as_tensor(rng.normal(size=(8, 3, 1, 64)), dtype=torch.float32)
+    actions = torch.as_tensor(rng.uniform(-1, 1, (8, 6, 1, 64)), dtype=torch.float32)
+    amplified = factory == "KSLatentConvolutionalLSTM" and reencode
+    with torch.no_grad():
+        ref = module.rollout(states, actions, reencode=reencode)
+        if amplified:
+            ref64 = module.double().rollout(states.double(), actions.double(),
+                                            reencode=reencode)
+            module.float()
+        got = module.to(dev).rollout(states.to(dev), actions.to(dev), reencode=reencode)
+    pairs = [(f, getattr(got, f), getattr(ref, f),
+              getattr(ref64, f) if amplified else None)
+             for f in ("outputs", "deltas", "inlatents", "outlatents")]
+    pairs += [(f"hidden[{i}]", g, r, ref64.hidden[i] if amplified else None)
+              for i, (g, r) in enumerate(zip(got.hidden, ref.hidden))]
+    for name, g, r, r64 in pairs:
+        assert g.device.type == "cuda", name
+        scale = module.delta if name == "deltas" and module.mode == LATENT else 1.0
+        g = g.cpu() * scale
+        if not amplified:
+            torch.testing.assert_close(g, r * scale, rtol=3e-5, atol=3e-6,
+                                       msg=lambda m: f"{name}: {m}")
+            continue
+        # [B, T, ...] fields by step; the hidden state as one last step.
+        steps = (0, 2, 3) if r.ndim == 4 and not name.startswith("hidden") else ()
+        cpu_err = ((r - r64).abs() * scale).amax(dim=steps, keepdim=True)
+        card_err = (g - r64 * scale).abs().amax(dim=steps, keepdim=True)
+        print(f"{name}: max |cpu32 - cpu64| {cpu_err.flatten().tolist()}, "
+              f"max |card - cpu64| {card_err.flatten().tolist()}")
+        bound = 3e-6 + 3e-5 * (r64 * scale).abs() + 2.0 * cpu_err
+        excess = (g - r64 * scale).abs() - bound
+        assert float(excess.max()) <= 0, f"{name}: {float(excess.max()):.3e} over the bound"
+
+
+@pytest.mark.parametrize("objective", ["l2control", "dissipation"])
+@pytest.mark.parametrize("batch", [1, 10, 100])
+def test_burgers_period_on_the_card_matches_the_cpu(dev, objective, batch):
+    """One control period of 250 Heun sub-steps at the env's defaults; no KS
+    kernel launches."""
+    from pdecontrol_tpu_torch.envs.burgers import Burgers
+    from pdecontrol_tpu_torch.envs.kuramoto import EnvState
+    from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed
+
+    before = pallas_ks.launch_count, pallas_ks_packed.launch_count
+    cpu = Burgers.create(objective=objective, legacy_objective=False)
+    gpu = Burgers.create(objective=objective, legacy_objective=False, device=dev)
+    u = cpu.sample_ic(torch.Generator().manual_seed(batch), (batch,))
+    a = torch.as_tensor(np.random.default_rng(batch).uniform(-1, 1, (batch, 1, 4)),
+                        dtype=torch.float32)
+    step = torch.zeros((batch,), dtype=torch.int32)
+    _, ref = cpu.step(EnvState(u=u, step=step), a)
+    _, got = gpu.step(EnvState(u=u.to(dev), step=step.to(dev)), a.to(dev))
+    assert got.obs.device.type == "cuda" and got.reward.shape == (batch,)
+    torch.testing.assert_close(got.obs.cpu(), ref.obs, rtol=3e-5, atol=3e-6)
+    torch.testing.assert_close(got.reward.cpu(), ref.reward, rtol=3e-5, atol=3e-6)
+    assert (pallas_ks.launch_count, pallas_ks_packed.launch_count) == before

@@ -1,25 +1,22 @@
 """The port's entry points run on the GPU unless asked for the CPU: without
-a CUDA device, the MBPO CLI, the SAC trainer and the attractor gate raise
-(naming ``--platform cpu``) instead of carrying on on the CPU.  That they
-run with ``--platform cpu`` is shown by their CLI tests
-(``tests/test_torch_{slice,sac_train,gate}.py``)."""
+a CUDA device, the MBPO CLI, the SAC trainer, the attractor gate and the
+offline ``generate`` / ``evaluate`` CLIs raise (naming ``--platform cpu``)
+instead of carrying on on the CPU.  That they run with ``--platform cpu`` is
+shown by their CLI tests
+(``tests/test_torch_{slice,sac_train,gate,evaluation}.py``)."""
 
 import pytest
 import torch
 
-from pdecontrol_tpu_torch.evaluation import bf16_gate
+import numpy as np
+
+from pdecontrol_tpu_torch.evaluation import bf16_gate, evaluate, generate
 from pdecontrol_tpu_torch.mbrl import script
 from pdecontrol_tpu_torch.sac import train
 from pdecontrol_tpu_torch.utils import device as D
 
 from .test_torch_sac_train import ENV, _args as sac_args
-from .test_torch_slice import SMOKE_ARGS
-
-
-def _without(args, flag):
-    """``args`` with ``flag`` and its value taken out."""
-    i = args.index(flag)
-    return args[:i] + args[i + 2:]
+from .test_torch_slice import SMOKE_ARGS, _without
 
 
 def _mbpo(platform, tmp_path):
@@ -40,9 +37,24 @@ def _gate(platform, tmp_path):
                            "--output", str(tmp_path / "verdict.json")] + platform)
 
 
+def _generate(platform, tmp_path):
+    return generate.main(["--episodes", "2", "--output", str(tmp_path / "verdict.json"),
+                          "--config", '{"n": 16, "cfg_steps": 5, "t_max": 0.04, '
+                          '"transient_time": 0.5}'] + platform)
+
+
+def _evaluate(platform, tmp_path):
+    data = {"obs": np.zeros((3, 8, 1, 16), np.float32),
+            "actions": np.zeros((3, 8, 1, 4), np.float32)}
+    np.savez(tmp_path / "data.npz", **data)
+    return evaluate.main(["--data", str(tmp_path / "data.npz"),
+                          "--output", str(tmp_path / "verdict.json")] + platform)
+
+
 @pytest.mark.parametrize("platform", [[], ["--platform", "gpu"], ["--platform", "cuda"]],
                          ids=["default", "gpu", "cuda"])
-@pytest.mark.parametrize("entry", [_mbpo, _sac, _gate], ids=["mbpo", "sac", "gate"])
+@pytest.mark.parametrize("entry", [_mbpo, _sac, _gate, _generate, _evaluate],
+                         ids=["mbpo", "sac", "gate", "generate", "evaluate"])
 def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path, entry, platform):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--platform cpu"):

@@ -36,7 +36,9 @@ def test_sources_found():
     assert (PORT / "csrc" / "ks_control_period_limb.cu").exists()
     for module in ("ops/pallas_ks_packed.py", "evaluation/bf16_gate.py", "sac/train.py",
                    "utils/checkpoint.py", "utils/asyncviz.py", "utils/waterfall.py",
-                   "viz/plots.py", "viz/report.py", "mbrl/agents.py"):
+                   "viz/plots.py", "viz/report.py", "mbrl/agents.py", "ops/burgers.py",
+                   "envs/burgers.py", "envs/gym_compat.py", "train/metrics.py",
+                   "evaluation/generate.py", "evaluation/evaluate.py"):
         assert PORT / module in SOURCES, module
 
 
