@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve phases, each timed:
+Thirteen phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
@@ -22,7 +22,11 @@ Twelve phases, each timed:
      and the roofline bound;
   3. the main path — ``pdecontrol_tpu_torch.mbrl.script.main`` with the
      flagship arguments of ``runscripts/mbpo_ks.sh`` and ``--solver pallas``
-     for a few iterations (see ``MAIN_ARGS``), then checks K1's launch count,
+     for a few iterations (see ``MAIN_ARGS``), by default: every iteration
+     that does not retrain replays the CUDA graph of the fused iteration,
+     captured at iteration 1, and its record carries the fused fields
+     (``t_dispatch`` and ``t_ready``, ``t_capture`` where it captured); the
+     phase checks K1's launch count (replays included),
      that every logged loss and return is finite, that ``metrics.jsonl``
      exists, that ``checkpoints/`` holds the steps 2, 4 and 6, and that the
      evaluation artifacts of iteration 0 (and, where the host has matplotlib
@@ -40,8 +44,9 @@ Twelve phases, each timed:
      pass, and each error is printed beside the TPU receipt's
      (``results/bf16_fidelity_{3x,4x}.json``);
   6. the bf16_3x MBPO path — ``MAIN_ARGS`` with ``--solver pallas_packed``
-     and ``pallas_precision`` bf16_3x (``runscripts/mbpo_ks_bf16.sh``),
-     checked as phase 3, and K2 must have launched;
+     and ``pallas_precision`` bf16_3x (``runscripts/mbpo_ks_bf16.sh``), and
+     an evaluation at iteration 5 as well, which runs on the fused route
+     (``t_fused``); checked as phase 3, and K2 must have launched;
   7. the model-free SAC baseline CLI (``pdecontrol_tpu_torch.sac.train``)
      through K2 for 5,000 env steps; K2 must have launched and every logged
      loss and return must be finite;
@@ -53,8 +58,10 @@ Twelve phases, each timed:
      until ``save()`` returns, until the file is on disk, and its size);
   9. trace: the main path cut to iterations 0 and 1 with ``--profile_dir``;
      the trace file must exist, and its size, the wall time of the traced
-     iteration and the share of it in which CUDA kernels ran are printed
-     (and the same kernel time against phase 3's untraced iteration 1);
+     iteration (one replay of the graph, captured before the trace starts)
+     and the share of it in which CUDA kernels ran are printed (and the same
+     kernel time against phase 3's iteration 1, from its dispatch to its
+     record's pull);
  10. the latent path — ``runscripts/mbpo_ks_latent_r4.sh``: the main path
      with ``--factory KSLatentConvolutionalLSTM`` and that script's
      ``--trainer`` and ``--training`` (see ``LATENT_ARGS``), checked as
@@ -70,9 +77,20 @@ Twelve phases, each timed:
      cut to one fold and two epochs; each fold's ``MSE``, ``nrmse_final``
      and ``val_loss`` must be finite and its npz must hold the metric
      battery's keys; one line per factory gives the train steps, the
-     seconds per TBPTT step and the ``MSE``.
+     seconds per TBPTT step and the ``MSE``;
+ 13. fused against eager — ``MAIN_ARGS`` with ``--no_fuse_iteration``: every
+     iteration runs its phases eagerly, each timed after a synchronisation;
+     K1 must launch as in phase 3, and the 6 records must equal phase 3's in
+     every field that does not read the clock.  Both runs' non-retrain
+     iteration wall times are printed.  Then the cost of the world step's
+     auto-reset, on phase 8's controller: ``imagine`` at horizon 3 with
+     the port's form (a reset drawn at every step but a round's last, picked
+     on the card), the JAX package's (a reset drawn at every step) and a
+     host-read form (the host reads whether the batch is done and resets
+     only then), eagerly and, for the two that need no host read, as a
+     replayed CUDA graph.
 
-Every path of phases 3 and 6 to 12 runs with the kernels' launch counts
+Every path of phases 3 and 6 to 13 runs with the kernels' launch counts
 set to 0 just before it, and they are read just after it; K1 runs the
 reset-pool transient of every KS path.  The script prints the card's name and power
 limit, one JSON line describing the kernels, and as its last line
@@ -99,6 +117,7 @@ RUN_DIR_TRACE = os.path.join(HERE, "runs", "chip_smoke_trace")
 RUN_DIR_LATENT = os.path.join(HERE, "runs", "chip_smoke_latent")
 RUN_DIR_BURGERS = os.path.join(HERE, "runs", "chip_smoke_burgers")
 RUN_DIR_OFFLINE = os.path.join(HERE, "runs", "chip_smoke_offline")
+RUN_DIR_EAGER = os.path.join(HERE, "runs", "chip_smoke_eager")
 KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
@@ -175,6 +194,13 @@ def with_args(args, **changes):
     return out
 
 
+# Phase 13: the main path with the eager phases.
+EAGER_ARGS = with_args(MAIN_ARGS, run_dir=RUN_DIR_EAGER) + ["--no_fuse_iteration"]
+# Fields of a record that read the host's clock or its garbage collector
+# (and every t_* timer), or the graph pool's size.
+CLOCK_FIELDS = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2",
+                "graph_pool_mb")
+
 # Phase 8: the same command with --resume and 20 more env steps.
 RESUME_ARGS = with_args(MAIN_ARGS, total_timesteps="5080") + ["--resume"]
 
@@ -186,12 +212,15 @@ TRACE_ARGS = with_args(
                         "iterations": {"min_steps": 50, "max_steps": 5}}),
 ) + ["--profile_dir", os.path.join(RUN_DIR_TRACE, "profile")]
 
-# runscripts/mbpo_ks_bf16.sh: the same run through K2 at bf16_3x.
+# runscripts/mbpo_ks_bf16.sh: the same run through K2 at bf16_3x, with
+# agent_eval_freq 50 -> 5, so that iteration 5 evaluates on the fused route
+# (its record carries t_fused).
 BF16_ARGS = MAIN_ARGS[: MAIN_ARGS.index("--solver")] + [
     "--solver", "pallas_packed",
     "--env_config", json.dumps({"pallas_precision": "bf16_3x"}),
-    "--run_dir", RUN_DIR_BF16,
+    "--run_dir", RUN_DIR_BF16, "--agent_eval_freq", "5",
 ]
+BF16_EVALS = (0, 5)
 
 # The SAC baseline's defaults (SAC hidden 256, batch 256, 10 envs, one
 # update per env step, a log record every 100 steps of the 10 envs) through
@@ -692,8 +721,8 @@ METRICS = ("train_loss", "val_loss", "sac_qf_loss", "sac_policy_loss", "eval_ret
 # (``pdecontrol_tpu/mbrl/controller.py`` ``_save_eval_artifact`` and
 # ``_save_surrogate_artifact``).
 ARTIFACT_KEYS = {
-    "eval_0.npz": {"obs", "actions", "rewards"},
-    "surrogate_eval_0.npz": {"states", "outputs", "actions", "rewards", "rpred", "hstep_mse"},
+    "eval_{}.npz": {"obs", "actions", "rewards"},
+    "surrogate_eval_{}.npz": {"states", "outputs", "actions", "rewards", "rpred", "hstep_mse"},
 }
 # Keys of ``fold{k}_metrics.npz`` (``pdecontrol_tpu/train/metrics.py``), KS.
 BATTERY_KEYS = (
@@ -704,8 +733,9 @@ BATTERY_KEYS = (
                                        "l1_loss_scaled_derivs", "l2_loss_scaled_derivs",
                                        "nrms_derivs") for d in range(3)}
 )
-PLOTS = {f"{stage}_{kind}_iter0.png" for stage in ("train", "val")
-         for kind in ("vis", "spatial")} | {"surrogate_iter0.png", "hstep_iter0.png"}
+# The plots of the first retrain, and of each evaluation iteration.
+PLOTS = {f"{stage}_{kind}_iter0.png" for stage in ("train", "val") for kind in ("vis", "spatial")}
+EVAL_PLOTS = ("surrogate_iter{}.png", "hstep_iter{}.png")
 
 
 def has_module(name: str) -> bool:
@@ -719,16 +749,17 @@ def can_render() -> bool:
     return has_module("matplotlib") and has_module("PIL")
 
 
-def check_outputs(run_dir, steps):
+def check_outputs(run_dir, steps, evals=(0,)):
     """The files a run leaves beside ``metrics.jsonl``: the snapshots
-    ``steps``, iteration 0's evaluation artifacts with the JAX package's
-    keys and finite contents, and, where the host can render, the plots."""
+    ``steps``, the evaluation artifacts of the iterations ``evals`` with the
+    JAX package's keys and finite contents, and, where the host can render,
+    the plots."""
     import numpy as np
 
     names = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
     if names != sorted(f"{s}.pt" for s in steps):
         raise AssertionError(f"checkpoints/ holds {names}, expected the steps {steps}")
-    for name, keys in ARTIFACT_KEYS.items():
+    for name, keys in ((n.format(i), k) for i in evals for n, k in ARTIFACT_KEYS.items()):
         with np.load(os.path.join(run_dir, "evaluation", name)) as z:
             if set(z.files) != keys:
                 raise AssertionError(f"{name} holds {sorted(z.files)}")
@@ -738,13 +769,32 @@ def check_outputs(run_dir, steps):
         print(f"   {name}: {shapes}", flush=True)
     plots_dir = os.path.join(run_dir, "plots")
     plots = set(os.listdir(plots_dir)) if os.path.isdir(plots_dir) else set()
-    if can_render() and plots != PLOTS:
-        raise AssertionError(f"plots/ holds {sorted(plots)}, expected {sorted(PLOTS)}")
+    want = PLOTS | {p.format(i) for i in evals for p in EVAL_PLOTS}
+    if can_render() and plots != want:
+        raise AssertionError(f"plots/ holds {sorted(plots)}, expected {sorted(want)}")
     print(f"   checkpoints {names}; plots {sorted(plots)}", flush=True)
 
 
-def run_mbpo(args, run_dir, kernels):
-    """Phases 3, 6, 10 and 11: the port's MBPO CLI entry point for 6
+def check_route(records, fused):
+    """Each iteration's fields say which route ran it: a retrain, or every
+    iteration under ``--no_fuse_iteration``, times its eager phases; any
+    other iteration is dispatched as one body and pulled late (``t_ready``)
+    or, on an evaluation iteration, at once (``t_fused``)."""
+    for r in records:
+        if not fused or "t_surrogate" in r:
+            want, banned = {"t_collect", "t_imagine", "t_policy", "t_pull"}, "t_dispatch"
+        else:
+            want = {"t_dispatch", "t_fused" if "t_eval" in r else "t_ready"}
+            banned = "t_collect"
+        if not want <= set(r) or banned in r:
+            raise AssertionError(f"iteration {r['iteration']} ran the wrong route: "
+                                 f"{sorted(k for k in r if k.startswith('t_'))}")
+    if fused and not any("t_capture" in r for r in records):
+        raise AssertionError("no iteration captured the fused iteration's graph")
+
+
+def run_mbpo(args, run_dir, kernels, fused=True, evals=(0,)):
+    """Phases 3, 6, 10, 11 and 13: the port's MBPO CLI entry point for 6
     iterations."""
     from pdecontrol_tpu_torch.mbrl import script
 
@@ -756,13 +806,14 @@ def run_mbpo(args, run_dir, kernels):
     require(counts, kernels, "the MBPO run")
 
     records, seen = check_records(os.path.join(run_dir, "metrics.jsonl"), METRICS)
-    check_outputs(run_dir, (2, 4, 6))
+    check_outputs(run_dir, (2, 4, 6), evals)
     iters = [r for r in records if "iteration" in r]
     retrains = sum(1 for r in records if "num_ensemble_updates" in r)
     if len(iters) != 6 or retrains < 2:
         raise AssertionError(f"{len(iters)} iterations, {retrains} retrains")
+    check_route(iters, fused)
     for r in iters:
-        t = {k: v for k, v in r.items() if k.startswith("t_")}
+        t = {k: v for k, v in r.items() if k.startswith("t_") or k == "graph_pool_mb"}
         print(f"   iteration {r['iteration']}: {json.dumps(t)} "
               f"env_steps_per_sec {r['env_steps_per_sec']:.2f}", flush=True)
     first = records[0]
@@ -949,6 +1000,7 @@ def run_restart():
     print(f"   checkpoint: save() returned after {t_save:.4f} s, on disk after "
           f"{t_disk:.4f} s, {size} bytes ({size / 1e6:.1f} MB); restore() to the card "
           f"{t_restore:.4f} s", flush=True)
+    return ctl
 
 
 def run_trace():
@@ -992,18 +1044,121 @@ def run_trace():
     print(f"   traced iteration 1: {trace['wall_s']:.4f} s under the profiler "
           f"{json.dumps(t)}", flush=True)
     if spans:
-        # The profiler slows the host, not the kernels: the same kernel time
-        # against phase 3's iteration 1, which ran the same work untraced.
+        # The same kernel time against phase 3's iteration 1, which ran the
+        # same work untraced: from its dispatch until its record's pull, the
+        # checkpoint after it (an upper bound of its device time).
         with open(os.path.join(RUN_DIR, "metrics.jsonl")) as f:
             untraced = [json.loads(line) for line in f][1]
-        plain_s = sum(v for k, v in untraced.items()
-                      if k in ("t_collect", "t_imagine", "t_policy", "t_pull"))
+        plain_s = untraced["t_dispatch"] + untraced["t_ready"]
         print(f"   {len(spans)} kernels ran for {busy / 1e6:.4f} s: the card was busy "
               f"{100 * busy / 1e6 / trace['wall_s']:.2f}% of the traced iteration, and "
               f"{100 * busy / 1e6 / plain_s:.2f}% of phase 3's untraced iteration 1 "
-              f"({plain_s:.4f} s)", flush=True)
+              f"(t_dispatch + t_ready {plain_s:.4f} s)", flush=True)
     else:
         print("   the trace holds no CUDA kernel: device busy share not measured", flush=True)
+
+
+def time_world_forms(ctl):
+    """Milliseconds of one ``imagine(3)`` of the restored main-path
+    controller in three forms of the world step's auto-reset: eagerly (host
+    clock around work that ends in a synchronisation, mean of 3 after one
+    warm-up) and, where no value goes to the host, as a CUDA graph (CUDA
+    events over 5 replays).  Draws and replay writes go to the controller's
+    state, which nothing reads after this phase."""
+    import types
+
+    import torch
+
+    from pdecontrol_tpu_torch.mbrl.world import WorldModel
+    from pdecontrol_tpu_torch.utils.graphs import GraphCache
+
+    world = ctl.world
+
+    def host_step(self, generator, state, ens, agent_action, tr, horizon, replay,
+                  reset=True):
+        env_action = tr.agent_to_env_action(agent_action)
+        stepped, reward = self.advance(generator, state, ens,
+                                       tr.env_action_to_world(env_action), tr)
+        env_limit = stepped.timesteps >= self.max_episode_steps
+        all_done = bool(torch.all(env_limit | (stepped.simulated >= horizon)))
+        truncated = torch.full_like(env_limit, all_done)
+        state = self.reset(generator, ens, replay, tr) if all_done else stepped
+        return state, (state.obs, reward, torch.zeros_like(truncated), truncated,
+                       stepped.obs)
+
+    def jax_step(self, *args, reset=True, **kwargs):
+        return WorldModel.step(self, *args, reset=True, **kwargs)
+
+    forms = {"port": WorldModel.step, "jax": jax_step, "host": host_step}
+    out = {}
+    try:
+        for name, step in forms.items():
+            world.step = types.MethodType(step, world)
+            eager = []
+            for i in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ctl.imagine(3)
+                torch.cuda.synchronize()
+                if i:
+                    eager.append(time.perf_counter() - t0)
+            graphed = None
+            if name != "host":
+                cache = GraphCache([ctl.gen])
+                captured = cache.capture(name, lambda: ctl.imagine(3)[1], [])
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                captured.graph.replay()
+                start.record()
+                for _ in range(5):
+                    captured.graph.replay()
+                end.record()
+                torch.cuda.synchronize()
+                graphed = start.elapsed_time(end) / 5
+            out[name] = (1e3 * sum(eager) / len(eager), graphed)
+    finally:
+        del world.step
+    for name, (eager_ms, graphed_ms) in out.items():
+        print(f"   world step form {name}: imagine(3) eager {eager_ms:.2f} ms, graph "
+              + ("not capturable (host read)" if graphed_ms is None
+                 else f"{graphed_ms:.2f} ms"), flush=True)
+
+
+def run_fused_against_eager():
+    """Phase 13: the main path with ``--no_fuse_iteration``; its stream
+    must equal phase 3's (the first 6 records: phase 8 appended 2) in every
+    field that does not read the clock."""
+    counts = run_mbpo(EAGER_ARGS, RUN_DIR_EAGER, ("K1",), fused=False)
+    if counts != {"K1": MAIN_K1_LAUNCHES, "K2": 0}:
+        raise AssertionError(f"the eager path launched {counts}, expected K1 "
+                             f"{MAIN_K1_LAUNCHES} times and K2 never")
+
+    def stream(run_dir):
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f][:6]
+
+    def strip(r):
+        return {k: v for k, v in r.items() if k not in CLOCK_FIELDS and not k.startswith("t_")}
+
+    fused, eager = stream(RUN_DIR), stream(RUN_DIR_EAGER)
+    differ = []
+    for a, b in zip(fused, eager):
+        sa, sb = strip(a), strip(b)
+        if sa.keys() != sb.keys():
+            raise AssertionError(f"iteration {a['iteration']}: the fields differ "
+                                 f"({sorted(sa.keys() ^ sb.keys())})")
+        differ += [(a["iteration"], k, sa[k], sb[k]) for k in sa if sa[k] != sb[k]]
+    if differ:
+        raise AssertionError(f"the fused and eager streams differ: {differ}")
+    print(f"   fused (phase 3) and eager streams equal in all "
+          f"{sum(len(strip(r)) for r in fused)} non-clock fields of 6 records", flush=True)
+    for a, b in zip(fused, eager):
+        if "t_surrogate" in a:
+            continue
+        eager_s = sum(b[k] for k in ("t_collect", "t_imagine", "t_policy", "t_pull"))
+        print(f"   iteration {a['iteration']} (non-retrain): fused t_dispatch "
+              f"{a['t_dispatch']} s + t_ready {a['t_ready']} s = "
+              f"{a['t_dispatch'] + a['t_ready']:.4f} s; eager phases {eager_s:.4f} s",
+              flush=True)
 
 
 def main() -> int:
@@ -1050,7 +1205,7 @@ def main() -> int:
     done("5 attractor gate", t0)
 
     t0 = phase("6 bf16_3x MBPO path (K2)")
-    k2_counts = run_mbpo(BF16_ARGS, RUN_DIR_BF16, ("K1", "K2"))
+    k2_counts = run_mbpo(BF16_ARGS, RUN_DIR_BF16, ("K1", "K2"), evals=BF16_EVALS)
     done("6 bf16_3x MBPO path (K2)", t0)
 
     t0 = phase("7 SAC baseline CLI (K2)")
@@ -1058,7 +1213,7 @@ def main() -> int:
     done("7 SAC baseline CLI (K2)", t0)
 
     t0 = phase("8 restart (resume the main path)")
-    run_restart()
+    restarted = run_restart()
     done("8 restart (resume the main path)", t0)
 
     t0 = phase("9 trace (--profile_dir)")
@@ -1079,6 +1234,11 @@ def main() -> int:
     t0 = phase("12 offline (generate, evaluate x 5 factories)")
     run_offline()
     done("12 offline (generate, evaluate x 5 factories)", t0)
+
+    t0 = phase("13 fused against eager (--no_fuse_iteration)")
+    time_world_forms(restarted)
+    run_fused_against_eager()
+    done("13 fused against eager (--no_fuse_iteration)", t0)
 
     print(json.dumps({"kernels": [
         {

@@ -14,12 +14,17 @@ tensors on the GPU.
 
 Float32 on the GPU means float32: TF32 is turned off for matrix products and
 for cuDNN convolutions (the surrogate is all convolutions, and cuDNN would
-otherwise run them in TF32) before anything of the port runs.
+otherwise run them in TF32) before anything of the port runs.  cuDNN also
+keeps to its deterministic algorithms, so that two runs of one seed on one
+card give the same numbers, as the JAX package's do: the fused iteration's
+CUDA graphs are held to the eager phases that way (``chip_smoke.py`` phase
+13).
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
 
 __version__ = "0.1.0"

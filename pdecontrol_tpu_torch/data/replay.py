@@ -14,8 +14,10 @@ before step ``t`` and frame ``t+1`` the obs after it, so ``nxtobs`` is a
 shifted view and terminal observations need no separate channel.
 
 Unlike the JAX package, ``write_step`` updates the replay *in place* (it
-returns the same object): the buffers are the largest tensors of a run, and
-copying them on every env step would only cost memory traffic.
+returns the same object, every field at its address): the buffers are the
+largest tensors of a run, copying them on every env step would only cost
+memory traffic, and a CUDA graph of the loop reads and writes fixed
+addresses.
 """
 
 from __future__ import annotations
@@ -126,11 +128,11 @@ def write_step(
     # data-dependent shape forces a device sync).
     done_i = done.to(torch.int64)
     new_rows = replay.next_row + torch.cumsum(done_i, 0) - 1
-    replay.row_of_env = torch.where(done, new_rows, replay.row_of_env)
-    replay.next_row = replay.next_row + done_i.sum()
+    replay.row_of_env.copy_(torch.where(done, new_rows, replay.row_of_env))
+    replay.next_row.add_(done_i.sum())
     e = replay.num_rows
     claimed = torch.zeros(e + 1, dtype=torch.bool, device=done.device)
-    claimed[torch.where(done, new_rows % e, e)] = True
+    claimed.index_fill_(0, torch.where(done, new_rows % e, e), True)
     claimed = claimed[:e]
     replay.fill.masked_fill_(claimed, 0)
     replay.complete.masked_fill_(claimed, False)

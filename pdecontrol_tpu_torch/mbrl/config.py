@@ -31,8 +31,10 @@ class MBPOConfig:
     profile_dir: Optional[str] = None  # device trace of iteration 1
     # The JAX package fuses a non-retrain iteration (collect -> imagine ->
     # SAC) into one program and a whole surrogate fit into one on-device
-    # loop.  The port runs the unfused phase order and the per-epoch host
-    # fit whatever these say.
+    # loop.  The port runs the fused iteration as one CUDA graph per horizon,
+    # captured at that horizon's first non-retrain iteration (so it has no
+    # precompile ladder: precompile_horizons changes nothing), and the
+    # per-epoch host fit whatever fuse_fit says.
     fuse_iteration: bool = True
     fuse_fit: bool = True
     precompile_horizons: bool = True

@@ -3,8 +3,7 @@
 PDEModelBasedController).
 
 Loop structure (reference ``learn``, mbrl.py:384-449): warmup with random
-actions (``learning_starts``), then per iteration, in the JAX package's
-unfused phase order:
+actions (``learning_starts``), then per iteration:
 
   1. collect ``num_envs x rollout_length`` real samples;
   2. every ``surrogate_train_freq`` samples: refit the delta Normalize over
@@ -21,15 +20,28 @@ unfused phase order:
   7. every ``checkpoint_freq`` iterations a snapshot of the whole training
      state (``utils/checkpoint.py``); ``resume`` carries on from the last.
 
-Every phase ends in a device synchronisation before its ``t_*`` timer
-stops, so the per-phase timings in ``metrics.jsonl`` are honest wall times.
+By default (``fuse_iteration``, as in the JAX package) an iteration that
+does not retrain runs phases 1, 4 and 5 and packs its log scalars as one
+body (``_fused_body``, the counterpart of the JAX package's
+``_fused_iteration_fn``).  On the card the first such iteration of a horizon
+captures the body as a CUDA graph (``utils/graphs.py``) and every later one
+replays it; on the CPU the body runs eagerly.  Its record is pulled one
+iteration late (``t_dispatch``, then ``t_ready`` when the next iteration
+commits it), or at once on an evaluation iteration (``t_fused``); retrain
+iterations run the phases eagerly without a synchronisation between them.
+The body writes the controller's state in place, in both modes, since a
+graph reads and writes fixed addresses.  ``--no_fuse_iteration`` (and
+``--debug_nans``, whose checks wait for the device) runs every iteration's
+phases eagerly, each ending in a device synchronisation before its ``t_*``
+timer stops, so that those timings are honest wall times.
+
 A resumed run repeats neither the random warmup nor the initial policy
 evaluation (the JAX package repeats both, ``controller.py:1255-1266``): its
 replay, generator and counters are the snapshot's, so it goes on exactly as
 the uninterrupted run would have; only the wall-clock fields restart.
-The JAX package's fused iteration and fused fit, its precompile ladder, the
-device mesh and wandb (logging, image and artifact uploads) are not ported;
-the options that ask for a mesh or for wandb raise.
+The JAX package's fused fit, its precompile ladder, the device mesh and
+wandb (logging, image and artifact uploads) are not ported; the options
+that ask for a mesh or for wandb raise.
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ from pdecontrol_tpu_torch.utils import checkpoint as C
 from pdecontrol_tpu_torch.utils import profiling
 from pdecontrol_tpu_torch.utils.asyncviz import BackgroundRenderer
 from pdecontrol_tpu_torch.utils.device import entry_device
+from pdecontrol_tpu_torch.utils.graphs import GraphCache, copy_into, tensors_of
 from pdecontrol_tpu_torch.utils.logging import MetricsLogger
 
 ENVS = {
@@ -111,6 +124,10 @@ class PDEModelBasedController:
         self.device = dev = entry_device(device)
         # --debug_nans: finiteness checks at the phase boundaries.
         self.finite = profiling.FiniteChecks() if debug_nans else None
+        # The fused iteration cannot stop at a phase boundary to check it.
+        self.fused = cfg.fuse_iteration and not debug_nans
+        if cfg.fuse_iteration and debug_nans:
+            print("[fuse] --debug_nans runs the eager phases", flush=True)
         torch.manual_seed(cfg.seed)  # module initialisation
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
@@ -124,6 +141,12 @@ class PDEModelBasedController:
         self.num_pol_updates_per_iteration = int(
             cfg.policy_train_steps_per_sample * self.samples_per_iteration
         )
+        if self.fused and self.num_pol_updates_per_iteration % cfg.target_update_interval:
+            # A graph holds the target-update pattern of the chain it captured.
+            raise ValueError(
+                f"the fused iteration runs {self.num_pol_updates_per_iteration} SAC "
+                f"updates, not a multiple of target_update_interval "
+                f"{cfg.target_update_interval}: pass --no_fuse_iteration")
         self.sur_train_freq = max(
             int(cfg.surrogate_train_freq / self.samples_per_iteration), 1
         )
@@ -223,6 +246,14 @@ class PDEModelBasedController:
         self._start_time = time.time()
         self.throughput = profiling.Throughput()
         self.gc_monitor = profiling.GCMonitor()
+        # The fused iteration: its graphs on the card, the record awaiting
+        # its pull, and whether an iteration ran eagerly in this process
+        # (which a capture needs first: it loads every kernel and sets up
+        # every library handle and optimizer state the body touches).
+        self.graphs = GraphCache([self.gen]) if dev.type == "cuda" else None
+        self._capture_log: Dict[str, float] = {}
+        self._pending_log = None
+        self._warm = False
 
         # Checkpoint / resume.
         self.ckpt = None
@@ -272,6 +303,11 @@ class PDEModelBasedController:
         return int(self.config.model_rollouts_per_sample * self.samples_per_iteration)
 
     @property
+    def world_rounds(self) -> int:
+        return max(math.ceil(self.num_world_rollouts
+                             / self.config.model_rollouts_batch_size), 1)
+
+    @property
     def num_steps_sampled(self) -> int:
         return self.iteration * self.samples_per_iteration
 
@@ -279,18 +315,19 @@ class PDEModelBasedController:
     @torch.no_grad()
     def collect(self, nsteps: int, random: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (per-step rewards [nsteps, B], their mean)."""
-        env, tr = self.env, self.tr
+        """Returns (per-step rewards [nsteps, B], their mean); the env state
+        and the obs scaling are updated in place."""
+        env, tr, state = self.env, self.tr, self.env_state
         rewards = []
         for _ in range(nsteps):
-            raw_obs = env.observe(self.env_state)
+            raw_obs = env.observe(state)
             if random:
                 action = self.random_agent.select_action(None, raw_obs, self.gen)
             else:
                 action = self.sac.select_action(
                     self.sac_state, tr.raw_to_agent_obs(raw_obs), self.gen)
             env_action = tr.agent_to_env_action(action)
-            self.env_state, out = env.vec_step(self.env_state, env_action, self.pool)
+            state, out = env.vec_step(state, env_action, self.pool)
             if self.finite is not None:
                 self.finite("collect (env step)", field=out.info["final_obs"],
                             reward=out.reward)
@@ -303,7 +340,8 @@ class PDEModelBasedController:
                          out.terminated, out.truncated, out.info["final_obs"],
                          out.info["step"])
             rewards.append(out.reward)
-        self.tr = tr
+        copy_into(self.env_state, state)
+        copy_into(self.tr.oscaling, tr.oscaling)
         rewards = torch.stack(rewards)
         return rewards, torch.mean(rewards)
 
@@ -319,7 +357,7 @@ class PDEModelBasedController:
             var=und.var + var.to(und.var.dtype),
             count=und.count + 1,
         )
-        self.tr = self.tr.replace(undscaling=und)
+        copy_into(self.tr.undscaling, und)
 
     def update_surrogates(self) -> Dict[str, float]:
         cfg = self.config
@@ -372,8 +410,8 @@ class PDEModelBasedController:
         )
         logs["t_fit_total"] = round(time.perf_counter() - t_fit0, 4)
         t_post0 = time.perf_counter()
-        self.ensemble = update_elites(self.ensemble,
-                                      torch.as_tensor(scores, device=self.device))
+        self.ensemble.elite_mask.copy_(update_elites(
+            self.ensemble, torch.as_tensor(scores, device=self.device)).elite_mask)
         self.num_ensemble_updates += 1
         self._train_vis(train_mask, val_mask, length0)
         scores = [float(s) for s in scores]
@@ -430,20 +468,20 @@ class PDEModelBasedController:
     @torch.no_grad()
     def imagine(self, horizon: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Imagined rollouts in batches of ``model_rollouts_batch_size`` from
-        replay starting states; returns (rewards [rounds*horizon, B], mean)."""
-        rounds = max(
-            math.ceil(self.num_world_rollouts / self.config.model_rollouts_batch_size), 1
-        )
+        replay starting states; returns (rewards [rounds*horizon, B], mean).
+        Each round starts from a reset, so the state after its last step is
+        not needed and the world step draws no reset there."""
         tr, world, ens = self.tr, self.world, self.ensemble
         rewards = []
-        for _ in range(rounds):
+        for _ in range(self.world_rounds):
             wstate = world.reset(self.gen, ens, self.replay, tr)
-            for _ in range(horizon):
+            for k in range(horizon):
                 prev_obs, prev_t = wstate.obs, wstate.timesteps
                 action = self.sac.select_action(
                     self.sac_state, tr.world_to_agent_obs(prev_obs), self.gen)
                 wstate, (_, reward, term, trunc, final_obs) = world.step(
-                    self.gen, wstate, ens, action, tr, horizon, self.replay)
+                    self.gen, wstate, ens, action, tr, horizon, self.replay,
+                    reset=k < horizon - 1)
                 if self.finite is not None:
                     self.finite("imagine (world-model step)", obs=final_obs,
                                 reward=reward)
@@ -670,8 +708,11 @@ class PDEModelBasedController:
 
         saved_at = self.iteration if self.restored else None
         while self.num_steps_sampled < cfg.total_timesteps - cfg.learning_starts:
-            # A profiler trace of one representative iteration.
+            # A profiler trace of one representative iteration; a graph it
+            # replays is captured before the trace starts.
             traced = bool(cfg.profile_dir) and self.iteration == 1
+            if traced:
+                self._prepare_graph()
             with (profiling.trace(cfg.profile_dir) if traced
                   else contextlib.nullcontext()) as trace:
                 self._run_iteration()
@@ -689,6 +730,7 @@ class PDEModelBasedController:
                 self.save_checkpoint()
                 saved_at = self.iteration
 
+        self._flush_pending_log()
         # One more snapshot at the end, unless the last iteration left one.
         if self.ckpt is not None and cfg.checkpoint_freq and saved_at != self.iteration:
             self.save_checkpoint()
@@ -698,80 +740,227 @@ class PDEModelBasedController:
 
     def save_checkpoint(self) -> None:
         """Snapshot the training state at ``self.iteration``; returns once the
-        state is copied to host memory (the file is written behind it)."""
+        state is copied to host memory (the file is written behind it).  The
+        record still awaiting its pull is committed first."""
+        self._flush_pending_log()
         self._sync()
         self.ckpt.save(self.iteration, C.controller_state(self))
+
+    # ---------------------------------------------------- the fused iteration
+    def _fused_key(self) -> Optional[Tuple[int, int, int, int]]:
+        """This iteration's graph key, the JAX package's ``_fused_jit`` key
+        (rollout length, horizon, rounds, SAC updates), or None if the
+        iteration runs its phases eagerly."""
+        if not self.fused or self.iteration % self.sur_train_freq == 0:
+            return None
+        return (self.config.rollout_length, int(self.schedule(iteration=self.iteration)),
+                self.world_rounds, self.num_pol_updates_per_iteration)
+
+    def _fused_body(self, nsteps: int, horizon: int) -> torch.Tensor:
+        """One non-retrain iteration: collect -> imagined rollouts -> chained
+        SAC updates, and the packed log scalars (the JAX package's
+        ``_fused_iteration_fn``).  It changes the controller's state only in
+        place, so that a CUDA graph of it replays onto the same tensors."""
+        self._phase = "collect"
+        _, collect_rmean = self.collect(nsteps)
+        self._phase = "imagine"
+        _, imag_rmean = self.imagine(horizon)
+        self._phase = "policy"
+        metrics = self.update_policy()
+        self._phase = "pack"
+        return self._pack_scalars(collect_rmean, imag_rmean, metrics)
+
+    def _pack_scalars(self, collect_rmean, imag_rmean, metrics) -> torch.Tensor:
+        """The ``LOG_SCALARS`` as one float64 vector, pulled in one copy."""
+        return torch.stack([
+            self.world_replay.ntimesteps.double(), collect_rmean.double(),
+            imag_rmean.double(), metrics["qf_loss"].double(),
+            metrics["policy_loss"].double(), self.replay.total_steps.double(),
+        ])
+
+    def _graph_state(self):
+        """The tensors the fused body reads and writes."""
+        return tensors_of(self.env_state, self.tr, self.pool, self.replay,
+                          self.world_replay, self.ensemble, self.sac_state)
+
+    def _prepare_graph(self) -> None:
+        """Capture this iteration's graph if it replays one not yet captured.
+        A capture runs the body's host code once and launches nothing: the
+        host counters it advanced are put back, and each replay advances
+        them."""
+        key = self._fused_key()
+        if (key is None or self.graphs is None or not self._warm
+                or self.graphs.get(key) is not None):
+            return
+        counters = (self.num_pol_updates, self.sac_state.updates)
+        self._phase = None
+        try:
+            graph = self.graphs.capture(key, lambda: self._fused_body(key[0], key[1]),
+                                        self._graph_state())
+        except Exception as e:
+            raise RuntimeError(f"capturing the fused iteration {key} as a CUDA graph "
+                               f"failed in its {self._phase} phase: {e}") from e
+        finally:
+            self.num_pol_updates, self.sac_state.updates = counters
+        self._capture_log = {"t_capture": round(graph.seconds, 4),
+                             "graph_pool_mb": round(graph.pool_bytes / 1e6, 3)}
+        print(f"[graphs] captured the fused iteration {key} in {graph.seconds:.2f} s; "
+              f"the shared pool grew by {graph.pool_bytes / 1e6:.1f} MB", flush=True)
+
+    def _dispatch(self, key) -> torch.Tensor:
+        """Run this iteration's fused body: replay its graph on the card, or
+        run it eagerly on the CPU and for the warm-up before the first
+        capture.  Returns the packed log scalars."""
+        graph = self.graphs.get(key) if self.graphs is not None else None
+        if graph is None:
+            packed = self._fused_body(key[0], key[1])
+        else:
+            try:
+                packed = graph.replay(self._graph_state())
+            except Exception as e:
+                raise RuntimeError(f"replaying the fused iteration {key} failed: "
+                                   f"{e}") from e
+            self.num_pol_updates += key[3]
+            self.sac_state.updates += key[3]
+        self._warm = True
+        return packed
+
+    @staticmethod
+    def _start_pull(packed: torch.Tensor):
+        """Queue the packed scalars' copy to the host behind the work that
+        computes them; ``_finish_pull`` waits for it.  On the card a replay
+        rewrites the graph's output, so the copy must leave before the next."""
+        if packed.device.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        return host, copied
+
+    @staticmethod
+    def _finish_pull(pull) -> Dict[str, float]:
+        host, copied = pull
+        if copied is not None:
+            copied.synchronize()
+        return dict(zip(LOG_SCALARS, host.tolist()))
+
+    def _commit_record(self, rec: Dict, pulled: Dict[str, float]) -> None:
+        rec = dict(rec)
+        rec.update({
+            "world_buffer_samples": int(pulled["world_buffer_samples"]),
+            "collect_reward_mean": float(pulled["collect_reward_mean"]),
+            "imagined_reward_mean": float(pulled["imagined_reward_mean"]),
+            "sac_qf_loss": float(pulled["sac_qf_loss"]),
+            "sac_policy_loss": float(pulled["sac_policy_loss"]),
+            "env_steps_per_sec": self.throughput.update(int(pulled["total_steps"])),
+        })
+        self.logger.log(rec, commit=True)
+
+    def _flush_pending_log(self) -> None:
+        """Pull and commit the previous fused iteration's record.  Called
+        one iteration behind (its copy was queued behind its work, which the
+        host did not wait for), and before anything that must see a complete
+        metrics stream: an evaluation or retrain iteration, a checkpoint, the
+        end of ``learn()``."""
+        if self._pending_log is None:
+            return
+        rec, pull, t0 = self._pending_log
+        self._pending_log = None
+        pulled = self._finish_pull(pull)
+        # Dispatch -> results on the host: it spans the next iteration's
+        # dispatch, so it bounds the device time from above.
+        rec["t_ready"] = round(time.perf_counter() - t0, 4)
+        self._commit_record(rec, pulled)
 
     def _run_iteration(self) -> None:
         cfg = self.config
         if self.finite is not None:
             self.finite.iteration = self.iteration
         retrain = self.iteration % self.sur_train_freq == 0
+        eval_iter = self.iteration % cfg.agent_eval_freq == 0
         horizon = int(self.schedule(iteration=self.iteration))
-        timings: Dict[str, float] = {}
-
-        def lap(name: str, t: float) -> float:
-            self._sync()
-            now = time.perf_counter()
-            timings[name] = round(now - t, 4)
-            return now
-
+        key = self._fused_key()
+        self._prepare_graph()
+        timings: Dict[str, float] = dict(self._capture_log)
+        self._capture_log = {}
         t = time.perf_counter()
-        _, collect_rmean = self.collect(cfg.rollout_length, random=False)
-        t = lap("t_collect", t)
 
-        if retrain:
-            self.gc_monitor.drain()  # reset the window to this retrain
-            t_delta0 = time.perf_counter()
-            self.update_delta_transform()
-            t_delta = time.perf_counter() - t_delta0
-            logs = self.update_surrogates()
-            gc_pause, gc_max, gc_counts = self.gc_monitor.drain()
-            self.logger.log(
-                {"num_ensemble_updates": self.num_ensemble_updates, **logs,
-                 "t_delta": round(t_delta, 4), "t_gc": round(gc_pause, 4),
-                 "gc_max_pause": round(gc_max, 4), "n_gc2": gc_counts[2]},
-                commit=False,
-            )
-            t = lap("t_surrogate", t)
+        if key is not None:
+            pull = self._start_pull(self._dispatch(key))
+            timings["t_dispatch"] = round(time.perf_counter() - t, 4)
+            if not eval_iter:
+                # Pipelined: this record waits for its pull, the previous
+                # one is committed now.
+                rec = {
+                    "iteration": self.iteration,
+                    "num_steps_sampled": self.num_steps_sampled + cfg.learning_starts,
+                    "horizon": horizon,
+                    "num_pol_updates": self.num_pol_updates,
+                    **timings,
+                    "time": time.time() - self._start_time,
+                }
+                self._flush_pending_log()
+                self._pending_log = (rec, pull, time.perf_counter())
+                self.iteration += 1
+                return
+            self._flush_pending_log()
+            pulled = self._finish_pull(pull)
+            timings["t_fused"], t = round(time.perf_counter() - t, 4), time.perf_counter()
+        else:
+            self._flush_pending_log()
 
-        _, imag_rmean = self.imagine(horizon)
-        t = lap("t_imagine", t)
+            def lap(name: str, t: float) -> float:
+                # Under fuse_iteration a retrain does not wait at each phase.
+                if not self.fused:
+                    self._sync()
+                now = time.perf_counter()
+                timings[name] = round(now - t, 4)
+                return now
 
-        pol_metrics = self.update_policy()
-        t = lap("t_policy", t)
+            _, collect_rmean = self.collect(cfg.rollout_length, random=False)
+            t = lap("t_collect", t)
 
-        packed = torch.stack([
-            self.world_replay.ntimesteps.double(), collect_rmean.double(),
-            imag_rmean.double(), pol_metrics["qf_loss"].double(),
-            pol_metrics["policy_loss"].double(), self.replay.total_steps.double(),
-        ]).tolist()
-        pulled = dict(zip(LOG_SCALARS, packed))
-        t = lap("t_pull", t)
+            if retrain:
+                self.gc_monitor.drain()  # reset the window to this retrain
+                t_delta0 = time.perf_counter()
+                self.update_delta_transform()
+                t_delta = time.perf_counter() - t_delta0
+                logs = self.update_surrogates()
+                gc_pause, gc_max, gc_counts = self.gc_monitor.drain()
+                self.logger.log(
+                    {"num_ensemble_updates": self.num_ensemble_updates, **logs,
+                     "t_delta": round(t_delta, 4), "t_gc": round(gc_pause, 4),
+                     "gc_max_pause": round(gc_max, 4), "n_gc2": gc_counts[2]},
+                    commit=False,
+                )
+                t = lap("t_surrogate", t)
 
-        if self.iteration % cfg.agent_eval_freq == 0:
+            _, imag_rmean = self.imagine(horizon)
+            t = lap("t_imagine", t)
+
+            pol_metrics = self.update_policy()
+            t = lap("t_policy", t)
+
+            packed = self._pack_scalars(collect_rmean, imag_rmean, pol_metrics)
+            pulled = dict(zip(LOG_SCALARS, packed.tolist()))
+            t = lap("t_pull", t)
+            self._warm = True
+
+        if eval_iter:
             self.logger.log(self.evaluate_policy(), commit=False)
             self.logger.log(self.evaluate_surrogate(), commit=False)
             wmean, wstd = torch.stack(R.episode_returns(self.world_replay)).tolist()
             self.logger.log({"world_return_mean": wmean, "world_return_std": wstd},
                             commit=False)
-            t = lap("t_eval", t)
+            timings["t_eval"] = round(time.perf_counter() - t, 4)  # ends in pulls
 
-        self.logger.log(
-            {
-                "iteration": self.iteration,
-                "num_steps_sampled": self.num_steps_sampled + cfg.learning_starts,
-                "horizon": horizon,
-                "world_buffer_samples": int(pulled["world_buffer_samples"]),
-                "collect_reward_mean": float(pulled["collect_reward_mean"]),
-                "imagined_reward_mean": float(pulled["imagined_reward_mean"]),
-                "num_pol_updates": self.num_pol_updates,
-                "sac_qf_loss": float(pulled["sac_qf_loss"]),
-                "sac_policy_loss": float(pulled["sac_policy_loss"]),
-                "env_steps_per_sec": self.throughput.update(int(pulled["total_steps"])),
-                **timings,
-                "time": time.time() - self._start_time,
-            },
-            commit=True,
-        )
+        self._commit_record({
+            "iteration": self.iteration,
+            "num_steps_sampled": self.num_steps_sampled + cfg.learning_starts,
+            "horizon": horizon,
+            "num_pol_updates": self.num_pol_updates,
+            **timings,
+            "time": time.time() - self._start_time,
+        }, pulled)
         self.iteration += 1

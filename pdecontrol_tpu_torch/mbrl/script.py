@@ -21,16 +21,22 @@ defaults; components are chosen by registry name.  Run e.g.:
 
 It runs on the GPU, and stops if there is none, unless ``--platform cpu``
 asks for the CPU.
-``--no_fuse_iteration``, ``--no_fuse_fit`` and
-``--sequential_member_training`` are accepted and change nothing: the port
-always runs the unfused phase order, the per-epoch fit and member-by-member
-training.  ``--checkpoint_freq N`` snapshots the whole training state every N
-iterations into ``<run_dir>/checkpoints`` and ``--resume`` carries on from
-the last snapshot, appending to the same ``metrics.jsonl``;
-``--profile_dir`` writes a ``torch.profiler`` trace of iteration 1;
-``--debug_nans`` turns on autograd's anomaly detection and finiteness checks
-at the phase boundaries (each waits for the device).  ``--factory`` takes
-each of the five families, ``--env_id`` the KS and the Burgers env (which
+By default an iteration that does not retrain runs as one body, on the GPU
+a CUDA graph captured at the first such iteration of each horizon and
+replayed from then on, and its metrics record is committed one iteration
+late (``t_dispatch``, ``t_ready``; ``t_fused`` on an evaluation iteration);
+``--no_fuse_iteration`` runs every iteration's phases eagerly, each timed
+after a device synchronisation (``t_collect``, ``t_imagine``, ``t_policy``,
+``t_pull``).  ``--no_fuse_fit`` and ``--sequential_member_training`` are
+accepted and change nothing: the port always runs the per-epoch fit and
+member-by-member training.  ``--checkpoint_freq N`` snapshots the whole
+training state every N iterations into ``<run_dir>/checkpoints`` and
+``--resume`` carries on from the last snapshot, appending to the same
+``metrics.jsonl``; ``--profile_dir`` writes a ``torch.profiler`` trace of
+iteration 1; ``--debug_nans`` turns on autograd's anomaly detection and
+finiteness checks at the phase boundaries (each waits for the device), and
+so runs the eager phases.  ``--factory`` takes each of the five families,
+``--env_id`` the KS and the Burgers env (which
 takes no ``--solver``), ``--loss`` ``MSELoss``, ``KSPhyPDELoss``,
 ``BurgersPhyPDELoss`` or ``PhyPDELoss``.  Flags for features not ported
 (``--wandb``, a device mesh, the multi-process runtime) raise.
@@ -74,7 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of iteration 1 here")
     p.add_argument("--no_fuse_iteration", action="store_true",
-                   help="accepted; the port always runs the unfused phases")
+                   help="run every iteration's phases eagerly, each timed after a device "
+                        "synchronisation, in place of one CUDA graph per non-retrain "
+                        "iteration")
     p.add_argument("--no_fuse_fit", action="store_true",
                    help="accepted; the port always fits with the per-epoch loop")
     # General

@@ -14,6 +14,10 @@ Reference semantics kept:
   * the whole batch resets only when EVERY sub-env has hit the rollout
     horizon or the env time limit (world.py:122-134); ``terminated`` is
     always False.
+
+The auto-reset takes the JAX package's form (``pdecontrol_tpu/mbrl/world.py``
+``step``): a fresh state is drawn at every step and picked on the device, so
+no value goes to the host and the step runs inside a CUDA graph.
 """
 
 from __future__ import annotations
@@ -37,7 +41,17 @@ class WorldState:
     obs: torch.Tensor  # [B, C, H] last selected prediction (world space)
     hidden: Any  # per-member transition carries, leading axis M
     timesteps: torch.Tensor  # [B] env-step counter (starts at warmup offset)
-    simulated: int  # steps since reset
+    simulated: torch.Tensor  # [] int64 steps since reset
+
+
+def _pick(cond: torch.Tensor, a: WorldState, b: WorldState) -> WorldState:
+    """``a`` where the scalar ``cond`` holds, else ``b``, field by field."""
+    return WorldState(
+        obs=torch.where(cond, a.obs, b.obs),
+        hidden=tuple(torch.where(cond, x, y) for x, y in zip(a.hidden, b.hidden)),
+        timesteps=torch.where(cond, a.timesteps, b.timesteps),
+        simulated=torch.where(cond, a.simulated, b.simulated),
+    )
 
 
 class WorldModel:
@@ -69,7 +83,7 @@ class WorldModel:
             obs=selected,
             hidden=roll.hidden,
             timesteps=batch.steps[:, -1].to(torch.int64),
-            simulated=0,
+            simulated=torch.zeros((), dtype=torch.int64, device=selected.device),
         )
 
     @torch.no_grad()
@@ -96,18 +110,23 @@ class WorldModel:
     @torch.no_grad()
     def step(self, generator: Optional[torch.Generator], state: WorldState,
              ens: EnsembleState, agent_action: torch.Tensor,
-             tr: ControllerTransforms, horizon: int, replay: R.ReplayState):
+             tr: ControllerTransforms, horizon: int, replay: R.ReplayState,
+             reset: bool = True):
         """One imagined step + batch auto-reset.  Returns ``(state, (obs,
         reward, terminated, truncated, final_obs))`` with obs in world space
-        (what the imagined replay stores)."""
+        (what the imagined replay stores).  The fresh state is drawn whether
+        or not the batch is done, as in the JAX package; ``reset=False``
+        skips it at a step whose returned state the caller discards (the
+        last step of an imagined round), which changes nothing it stores."""
         env_action = tr.agent_to_env_action(agent_action)
         waction = tr.env_action_to_world(env_action)  # [B, C, H] field
         stepped, reward = self.advance(generator, state, ens, waction, tr)
-        selected = stepped.obs
 
         env_limit = stepped.timesteps >= self.max_episode_steps
-        all_done = stepped.simulated >= horizon or bool(torch.all(env_limit))
-        truncated = torch.full_like(env_limit, all_done)
-        terminated = torch.zeros_like(truncated)
-        state = self.reset(generator, ens, replay, tr) if all_done else stepped
-        return state, (state.obs, reward, terminated, truncated, selected)
+        all_done = torch.all(env_limit | (stepped.simulated >= horizon))
+        truncated = torch.broadcast_to(all_done, env_limit.shape)
+        terminated = torch.zeros_like(env_limit)
+        state = stepped
+        if reset:
+            state = _pick(all_done, self.reset(generator, ens, replay, tr), stepped)
+        return state, (state.obs, reward, terminated, truncated, stepped.obs)

@@ -13,7 +13,8 @@ period and returns ``(u_next [B, N], reward [B])``, as
     ``[u | u^2] @ W`` form with the block-diagonal ``fused_stencil_matrix``).
 
 ``launch_count`` counts the kernel's launches, so that a run can show it
-went through the kernel.
+went through the kernel.  A launch inside a CUDA graph's capture runs
+nothing: ``utils/graphs.py`` takes it back out and adds it on every replay.
 """
 
 from __future__ import annotations

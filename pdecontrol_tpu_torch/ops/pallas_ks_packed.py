@@ -34,7 +34,8 @@ held bit-equal to the JAX ones.
 ``ks_control_period_packed`` launches ``csrc/ks_control_period_limb.cu`` for
 a float32 batch on the GPU (built at first use, one launch per period) or
 raises, and runs ``ks_control_period_packed_plain`` for one on the CPU.
-``launch_count`` counts the kernel's launches.
+``launch_count`` counts the kernel's launches (a CUDA graph's replays
+included, see ``utils/graphs.py``).
 """
 
 from __future__ import annotations

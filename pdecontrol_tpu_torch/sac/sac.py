@@ -52,8 +52,13 @@ class SACState:
 
 
 def _adam(params, lr: float) -> torch.optim.Adam:
-    # optax.adam defaults: b1 0.9, b2 0.999, eps 1e-8 outside the sqrt.
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    """optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8 outside the sqrt.
+    On the card the step counters live there too (``capturable``), so that
+    a CUDA graph of the updates replays them; the eager loop uses the same
+    setting, or the two would round the bias correction differently."""
+    params = list(params)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=params[0].device.type == "cuda")
 
 
 def _set_grads(params, loss: torch.Tensor) -> None:
@@ -175,7 +180,9 @@ class SAC:
             _set_grads([state.log_alpha], alpha_loss)
             state.alpha_opt.step()
 
-        # ---- Polyak soft update every interval (sac.py:129-130)
+        # ---- Polyak soft update every interval (sac.py:129-130).  The host
+        # counter picks the branch, so a CUDA graph of a chain of updates
+        # holds the pattern of the chain it captured.
         if state.updates % cfg.target_update_interval == 0:
             with torch.no_grad():
                 for t, s in zip(state.target.parameters(), state.critic.parameters()):

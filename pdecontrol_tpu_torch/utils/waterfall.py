@@ -4,7 +4,13 @@ Per-iteration wall time is taken from the committed ``time`` field deltas
 (which sum to the run's total by construction), bucketed into warmup /
 steady / retrain / eval iterations, and the retrain bucket is broken down
 into its logged sub-fields (t_delta, t_split, t_fit_train, t_fit_val,
-t_post, t_gc) with the residual printed, never silently dropped.
+t_post, t_gc) with the residual printed, never silently dropped.  The fused
+iterations' fields are summed beside the buckets: ``t_dispatch`` (host time
+to launch the iteration), ``t_ready`` (dispatch to the record's late pull,
+which spans the next dispatch and so bounds the device time from above),
+``t_fused`` (an evaluation iteration's dispatch and pull) and ``t_capture``
+(the CUDA graph captures), as the JAX package's stream carries the first
+three.
 
 Usage: ``python -m pdecontrol_tpu_torch.utils.waterfall runs/ks50k/metrics.jsonl``
 
@@ -28,6 +34,7 @@ from typing import Dict, List
 PHASE_FIELDS = [
     "t_collect", "t_surrogate", "t_imagine", "t_policy", "t_pull", "t_eval",
 ]
+FUSED_FIELDS = ["t_dispatch", "t_ready", "t_fused", "t_capture"]
 # Sub-fields of t_surrogate; t_gc overlaps (GC pauses inside the others)
 # and is reported separately, not summed.
 FIT_FIELDS = ["t_fit_train", "t_fit_val"]
@@ -51,12 +58,15 @@ def analyze(path: str) -> Dict:
     counts = defaultdict(int)
     phases = defaultdict(float)
     sur_sub = defaultdict(float)
+    fused = defaultdict(float)
     sur_fit_total = 0.0
     gc_total = 0.0
     prev_t = 0.0
     for r in iters:
         dt = r["time"] - prev_t
         prev_t = r["time"]
+        for f in FUSED_FIELDS:
+            fused[f] += r.get(f, 0.0)
         if "t_surrogate" in r:
             kind = "retrain"
             for f in PHASE_FIELDS:
@@ -107,6 +117,7 @@ def analyze(path: str) -> Dict:
         },
         "eval": {"n": counts["eval"], "sum_s": round(buckets["eval"], 1),
                  "t_eval_s": round(phases["t_eval"], 1)},
+        "fused_s": {k: round(v, 1) for k, v in fused.items() if v},
         "residual_s": round(total - sum(
             buckets[k] for k in ("warmup", "steady", "retrain", "eval")
         ), 1),

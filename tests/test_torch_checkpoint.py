@@ -292,6 +292,31 @@ def test_mismatched_checkpoint_raises(tmp_path, halfway, flags, match):
     assert sorted(os.listdir(run_dir / "checkpoints")) == ["2.pt", "4.pt"]
 
 
+def test_a_snapshot_follows_the_pending_record(tmp_path):
+    """Under the fused iteration a record waits one iteration for its pull;
+    a checkpoint commits it first, so a resumed stream misses no record."""
+    ctl = _controller(tmp_path, "--total_timesteps", "14", "--checkpoint_freq", "1")
+    assert ctl.fused
+    seen = []
+    save = ctl.ckpt.save
+
+    def checked(step, state, **kwargs):
+        seen.append((step, ctl._pending_log is None, ctl.logger._step))
+        return save(step, state, **kwargs)
+
+    ctl.ckpt.save = checked
+    try:
+        ctl.learn()
+    finally:
+        ctl.logger.finish()
+    # Iteration 0 retrains; 1 and 2 are pulled late, each committed by the
+    # snapshot after it.
+    assert seen == [(1, True, 1), (2, True, 2), (3, True, 3)]
+    records = _records(tmp_path)
+    assert [r["iteration"] for r in records] == [0, 1, 2]
+    assert all("t_ready" in r for r in records[1:])
+
+
 def test_resumed_run_equals_the_uninterrupted_run(tmp_path, halfway):
     """8 iterations in one go against 4, a new controller with ``--resume``,
     and 4 more: every field of every record that does not read the clock,
@@ -308,6 +333,10 @@ def test_resumed_run_equals_the_uninterrupted_run(tmp_path, halfway):
 
     a, b = _records(tmp_path / "whole"), _records(run_dir)
     assert [r["iteration"] for r in b] == list(range(8))
+    # Both ran the default fused route: the non-retrain records were pulled
+    # one iteration late, across the restart too.
+    assert whole.fused and resumed.fused
+    assert [i for i, r in enumerate(b) if "t_ready" in r] == [1, 2, 3, 5, 6, 7]
     assert len(a) == len(b)
     for ra, rb in zip(a, b):
         assert strip(ra) == strip(rb), ra["iteration"]

@@ -7,9 +7,14 @@ tolerance of tests/test_torch_packed.py against the JAX kernel body, over
 one warp per row with the state in registers, so the cases cover every
 batch shape the main path launches (1 to 1024 rows) and grids of 32, 64
 and 128 points (1, 2 and 4 points per lane), and K2 also 96 and 256 (3 and
-8 points per lane).  The last group holds a checkpoint's round trip on the
+8 points per lane).  A group holds a checkpoint's round trip on the
 card: bit-equal tensors that come back on the card, a generator that goes on
-with the saved stream, and a resumed run that learns on.  The group after it
+with the saved stream, and a resumed run that learns on.  The next holds the
+fused iteration's CUDA graph to its eager body: a capture that leaves the
+generator and the counters as they were, a replay equal to the eager
+iteration in every tensor and record field, launch counts that see the
+replay, a body that waits for nothing on the host, and two horizons' graphs
+in one pool.  The group after it
 holds each surrogate family's rollout and a Burgers control period on the
 card to the same computation on the CPU (rtol 3e-5, atol 3e-6, the float32
 tolerance of tests/test_env_solvers.py).  Every test here
@@ -281,13 +286,14 @@ def test_checkpoint_roundtrip_on_the_card_is_bit_equal(stopped_and_resumed):
 
 def test_restored_tensors_live_on_the_card(stopped_and_resumed):
     """All but what PyTorch itself keeps on the host: a generator's state
-    and Adam's step counters."""
+    and the step counters of the surrogates' Adam.  SAC's Adam is
+    capturable on the card, so its counters live there too."""
     from pdecontrol_tpu_torch.utils import checkpoint as C
 
     _, resumed = stopped_and_resumed
     for path, t in _tensors(C.controller_state(resumed)):
         on_host = path == "state['generator']" or (
-            "['state']" in path and path.endswith("['step']"))
+            path.startswith("state['member_states']") and path.endswith("['step']"))
         assert t.device.type == ("cpu" if on_host else "cuda"), path
     assert resumed.gen.device.type == "cuda"
     for p in resumed.sac_state.policy.parameters():
@@ -317,6 +323,143 @@ def test_resumed_run_goes_on_learning_on_the_card(stopped_and_resumed, tmp_path)
     records = [json.loads(line) for line in open(tmp_path / "run" / "metrics.jsonl")]
     assert [r["iteration"] for r in records] == list(range(6))
     assert "t_warmup_collect" not in records[4]
+
+
+# ------------------------------------------- the fused iteration as a graph
+@pytest.fixture
+def graphed_and_eager(dev, tmp_path):
+    """Two controllers at one state after the warm-up and iteration 0 (a
+    retrain, eager): ``graphed`` captures iteration 1 as a CUDA graph and
+    replays it, ``eager`` runs the same body eagerly.  Returns both and
+    what the capture left behind."""
+    from pdecontrol_tpu_torch.ops import pallas_ks
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    flags = ("--checkpoint_freq", "0", "--total_timesteps", "10")
+    graphed = _tiny_controller(tmp_path / "graphed", *flags)
+    graphed.learn()  # the warm-up and iteration 0
+    eager = _tiny_controller(tmp_path / "eager", *flags)
+    C.load_controller_state(eager, C.to_host(C.controller_state(graphed)))
+
+    gen, counters = graphed.gen.get_state(), (graphed.num_pol_updates,
+                                              graphed.sac_state.updates)
+    launches = pallas_ks.launch_count
+    graphed._prepare_graph()
+    capture = {"gen": (gen, graphed.gen.get_state()),
+               "counters": (counters, (graphed.num_pol_updates, graphed.sac_state.updates)),
+               "launches": (launches, pallas_ks.launch_count)}
+    assert graphed.graphs.get(graphed._fused_key()) is not None
+    assert eager.graphs.get(eager._fused_key()) is None and not eager._warm
+
+    replayed = {}
+    for name, ctl in (("graphed", graphed), ("eager", eager)):
+        before = pallas_ks.launch_count
+        ctl._run_iteration()
+        ctl._flush_pending_log()
+        torch.cuda.synchronize()
+        replayed[name] = pallas_ks.launch_count - before
+    yield graphed, eager, capture, replayed
+    graphed.logger.finish()
+    eager.logger.finish()
+
+
+def test_capture_leaves_the_generator_and_the_counters_unchanged(graphed_and_eager):
+    _, _, capture, _ = graphed_and_eager
+    before, after = capture["gen"]
+    assert torch.equal(before, after)
+    assert capture["counters"][0] == capture["counters"][1]
+    assert capture["launches"][0] == capture["launches"][1]
+
+
+def test_graphed_iteration_equals_the_eager_one(graphed_and_eager):
+    """Replay, world replay, SAC parameters, Adam moments and step counters,
+    transforms, env state, the generator after and every non-clock field
+    of the record: all exactly equal."""
+    import json
+
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    graphed, eager, _, _ = graphed_and_eager
+    assert graphed.iteration == eager.iteration == 2
+    a = dict(_tensors(C.controller_state(graphed)))
+    b = dict(_tensors(C.controller_state(eager)))
+    assert a.keys() == b.keys()
+    for path, t in a.items():
+        assert torch.equal(t, b[path]), path
+    assert (graphed.num_pol_updates, graphed.sac_state.updates) == \
+        (eager.num_pol_updates, eager.sac_state.updates)
+
+    def record(ctl):
+        r = [json.loads(line) for line in open(f"{ctl.config.run_dir}/metrics.jsonl")][-1]
+        return {k: v for k, v in r.items()
+                if not k.startswith(("t_", "_")) and k not in ("time", "env_steps_per_sec",
+                                                                "graph_pool_mb")}
+
+    assert record(graphed) == record(eager)
+    assert record(graphed)["iteration"] == 1
+
+
+def test_replay_counts_the_launches_it_makes(graphed_and_eager):
+    """K1's count goes up by the captured launches at the replay (one
+    collect step), as the eager iteration's does."""
+    _, _, _, replayed = graphed_and_eager
+    assert replayed == {"graphed": 1, "eager": 1}
+
+
+def test_fused_body_waits_for_nothing_on_the_host(graphed_and_eager):
+    """One eager pass of the body under the sync debug mode: no operation
+    of collect, imagine, the SAC updates or the packing synchronises."""
+    _, eager, _, _ = graphed_and_eager
+    key = eager._fused_key()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = eager._fused_body(key[0], key[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert packed.shape == (6,) and bool(torch.isfinite(packed).all())
+
+
+def test_graphs_of_two_horizons_share_one_pool(dev, tmp_path):
+    """Horizons 2, 3 and 2 again at iterations 1–3: two graphs captured into
+    one memory pool, the first replayed after the second's capture, equal
+    to the eager phases in every tensor and record field."""
+    import json
+
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    schedule = json.dumps({"scheduler": "StepScheduler", "steptype": "iteration",
+                           "steps": [1, 2], "values": [2, 3, 2]})
+    flags = ("--checkpoint_freq", "0", "--total_timesteps", "10",
+             "--rollout_length_schedule", schedule)
+    graphed = _tiny_controller(tmp_path / "graphed", *flags)
+    graphed.learn()  # the warm-up and iteration 0
+    eager = _tiny_controller(tmp_path / "eager", *flags, "--no_fuse_iteration")
+    C.load_controller_state(eager, C.to_host(C.controller_state(graphed)))
+    try:
+        for ctl in (graphed, eager):
+            for _ in range(3):
+                ctl._run_iteration()
+            ctl._flush_pending_log()
+        assert sorted(key[1] for key in graphed.graphs.graphs) == [2, 3]
+        assert not eager.graphs.graphs
+        a = dict(_tensors(C.controller_state(graphed)))
+        b = dict(_tensors(C.controller_state(eager)))
+        for path, t in a.items():
+            assert torch.equal(t, b[path]), path
+
+        def records(ctl):
+            with open(f"{ctl.config.run_dir}/metrics.jsonl") as f:
+                rs = [json.loads(line) for line in f][-3:]
+            return [{k: v for k, v in r.items() if not k.startswith(("t_", "_"))
+                     and k not in ("time", "env_steps_per_sec", "graph_pool_mb")}
+                    for r in rs]
+
+        assert [r["horizon"] for r in records(graphed)] == [2, 3, 2]
+        assert records(graphed) == records(eager)
+    finally:
+        graphed.logger.finish()
+        eager.logger.finish()
 
 
 # --------------------------------------- the families and Burgers on the card

@@ -165,8 +165,14 @@ def test_learn_smoke_through_cli(tmp_path):
                 "surrogate_open_loop_mse", "reward_model_error"):
         vals = [r[key] for r in records if key in r]
         assert vals and all(math.isfinite(v) for v in vals), key
-    for key in ("t_collect", "t_imagine", "t_policy", "env_steps_per_sec"):
-        assert all(key in r for r in iters), key
+    # The default route: the retrain iterations (0 and 4) run their phases
+    # eagerly; every other one is dispatched as one body and its record
+    # committed when the next iteration has been dispatched.
+    for r in iters:
+        fused = r["iteration"] % 4 != 0
+        keys = ("t_dispatch", "t_ready") if fused else ("t_collect", "t_imagine", "t_policy")
+        for key in keys + ("env_steps_per_sec",):
+            assert key in r, (r["iteration"], key)
     assert iters[-1]["num_steps_sampled"] == 22
     assert json.load(open(os.path.join(run_dir, "config.json")))["env_config"]["solver"] \
         == "pallas"
@@ -212,8 +218,18 @@ def test_unported_flags_raise(flags, tmp_path):
         script.main(SMOKE_ARGS + ["--run_dir", str(tmp_path)] + flags)
 
 
-def test_fusion_flags_are_accepted():
-    args = script.build_parser().parse_args(
-        ["--no_fuse_iteration", "--no_fuse_fit", "--sequential_member_training"])
-    cfg = script.config_from_args(args)
+def test_fusion_flags_are_accepted(tmp_path):
+    """``--no_fuse_iteration`` selects the eager phases, each timed after a
+    device synchronisation; ``--no_fuse_fit`` and
+    ``--sequential_member_training`` are accepted and change nothing yet."""
+    flags = ["--no_fuse_iteration", "--no_fuse_fit", "--sequential_member_training"]
+    cfg = script.config_from_args(script.build_parser().parse_args(flags))
     assert not cfg.fuse_iteration and not cfg.fuse_fit and not cfg.vmap_ensemble_training
+    run_dir = str(tmp_path / "run")
+    assert script.main(SMOKE_ARGS + ["--run_dir", run_dir, "--logging_freq", "0",
+                                     "--total_timesteps", "16"] + flags) == 0
+    records = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    assert [r["iteration"] for r in records] == list(range(4))
+    for r in records:
+        assert {"t_collect", "t_imagine", "t_policy", "t_pull"} <= set(r), r
+        assert not {"t_dispatch", "t_ready", "t_fused"} & set(r), r
