@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases, each timed:
+Fourteen phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
@@ -88,7 +88,23 @@ Thirteen phases, each timed:
      on the card), the JAX package's (a reset drawn at every step) and a
      host-read form (the host reads whether the batch is done and resets
      only then), eagerly and, for the two that need no host read, as a
-     replayed CUDA graph.
+     replayed CUDA graph;
+ 14. lock-step fit against one-after-another — phase 3's last snapshot
+     (iteration 6) restored into a controller of each fit route, each of
+     which retrains once at the flagship's ``iterations`` trainer config
+     (patience 5, ``min_steps`` 50) cut to ``max_steps`` 50:
+     ``--sequential_member_training``, ``--no_fuse_fit`` and the default;
+     each route's ``t_fit_total``, its seconds per lock-step step and per
+     member-step, the default route's capture time and pool growth, and
+     the share of computed member-steps that belonged to members already
+     stopped are printed, and the default route's parameters, Adam state and
+     val losses must equal ``--no_fuse_fit``'s exactly.
+
+Every retrain of the MBPO paths (phases 3, 6 and 8 to 11 and 13) runs the
+default lock-step fit, its TBPTT and validation steps replayed from CUDA
+graphs: each retrain record must carry that route's fields
+(``t_fit_prep``, ``t_fit_dispatch``, ``t_fit_ready``), and each run's first
+retrain the fit's captures (``t_fit_capture``).
 
 Every path of phases 3 and 6 to 13 runs with the kernels' launch counts
 set to 0 just before it, and they are read just after it; K1 runs the
@@ -118,6 +134,7 @@ RUN_DIR_LATENT = os.path.join(HERE, "runs", "chip_smoke_latent")
 RUN_DIR_BURGERS = os.path.join(HERE, "runs", "chip_smoke_burgers")
 RUN_DIR_OFFLINE = os.path.join(HERE, "runs", "chip_smoke_offline")
 RUN_DIR_EAGER = os.path.join(HERE, "runs", "chip_smoke_eager")
+RUN_DIR_FIT = os.path.join(HERE, "runs", "chip_smoke_fit")
 KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
@@ -199,7 +216,7 @@ EAGER_ARGS = with_args(MAIN_ARGS, run_dir=RUN_DIR_EAGER) + ["--no_fuse_iteration
 # Fields of a record that read the host's clock or its garbage collector
 # (and every t_* timer), or the graph pool's size.
 CLOCK_FIELDS = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2",
-                "graph_pool_mb")
+                "graph_pool_mb", "fit_graph_pool_mb")
 
 # Phase 8: the same command with --resume and 20 more env steps.
 RESUME_ARGS = with_args(MAIN_ARGS, total_timesteps="5080") + ["--resume"]
@@ -211,6 +228,21 @@ TRACE_ARGS = with_args(
     trainer=json.dumps({"initial": {"min_steps": 250, "max_steps": 5},
                         "iterations": {"min_steps": 50, "max_steps": 5}}),
 ) + ["--profile_dir", os.path.join(RUN_DIR_TRACE, "profile")]
+
+# Phase 14: the flagship's "iterations" trainer config (patience 5 from
+# MAIN_ARGS' --training, min_steps 50) with max_steps 250 -> 50, one retrain
+# from phase 3's last snapshot under each fit route.
+FIT_ARGS = with_args(
+    MAIN_ARGS, run_dir=RUN_DIR_FIT, checkpoint_freq="0",
+    trainer=json.dumps({"initial": {"min_steps": 250, "max_steps": 50},
+                        "iterations": {"min_steps": 50, "max_steps": 50}}),
+)
+FIT_ROUTES = {"--sequential_member_training": ["--sequential_member_training"],
+              "--no_fuse_fit": ["--no_fuse_fit"], "default": []}
+SNAPSHOT_STEP = 6
+# The fields of a retrain record on the default fit route.
+FIT_FIELDS = {"t_fit_prep", "t_fit_dispatch", "t_fit_ready", "t_fit_total", "steps", "epochs",
+              "curriculum_K", "lr", "train_loss", "val_loss", "elite_scores"}
 
 # runscripts/mbpo_ks_bf16.sh: the same run through K2 at bf16_3x, with
 # agent_eval_freq 50 -> 5, so that iteration 5 evaluates on the fused route
@@ -791,6 +823,19 @@ def check_route(records, fused):
                                  f"{sorted(k for k in r if k.startswith('t_'))}")
     if fused and not any("t_capture" in r for r in records):
         raise AssertionError("no iteration captured the fused iteration's graph")
+    check_fit_route(records)
+
+
+def check_fit_route(records):
+    """Every retrain ran the default lock-step fit, its steps from graphs
+    captured at the run's first retrain."""
+    retrains = [r for r in records if "t_surrogate" in r]
+    for r in retrains:
+        if not FIT_FIELDS <= set(r) or "t_fit_val" in r:
+            raise AssertionError(f"iteration {r['iteration']}'s retrain ran another fit "
+                                 f"route: {sorted(k for k in r if k.startswith('t_fit'))}")
+    if retrains and "t_fit_capture" not in retrains[0]:
+        raise AssertionError("the first retrain did not capture the fit's graphs")
 
 
 def run_mbpo(args, run_dir, kernels, fused=True, evals=(0,)):
@@ -970,6 +1015,7 @@ def run_restart():
         raise AssertionError(f"metrics.jsonl holds {[r.get('iteration') for r in records]}")
     if records[:6] != before:
         raise AssertionError("the resumed run rewrote the records of the first run")
+    check_fit_route(records[6:])
     for r in records[6:]:
         if "t_warmup_collect" in r or "eval_return_mean" in r:
             raise AssertionError(f"iteration {r['iteration']} warmed up or evaluated again")
@@ -1040,6 +1086,7 @@ def run_trace():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     records, _ = check_records(os.path.join(RUN_DIR_TRACE, "metrics.jsonl"),
                                ("train_loss", "sac_qf_loss", "eval_return_mean"))
+    check_fit_route(records)
     t = {k: v for k, v in records[1].items() if k.startswith("t_")}
     print(f"   traced iteration 1: {trace['wall_s']:.4f} s under the profiler "
           f"{json.dumps(t)}", flush=True)
@@ -1161,7 +1208,79 @@ def run_fused_against_eager():
               flush=True)
 
 
+def run_fit_routes():
+    """Phase 14: one retrain of phase 3's last snapshot under each fit route;
+    the default route must equal ``--no_fuse_fit`` exactly."""
+    import torch
+
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    shutil.rmtree(RUN_DIR_FIT, ignore_errors=True)
+    snapshot = C.CheckpointManager(os.path.join(RUN_DIR, "checkpoints")).restore(
+        step=SNAPSHOT_STEP, map_location="cpu")
+
+    def routes():
+        out = {}
+        for name, flags in FIT_ROUTES.items():
+            ctl = build_controller(with_args(FIT_ARGS, run_dir=os.path.join(
+                RUN_DIR_FIT, name.strip("-"))) + flags)
+            try:
+                C.load_controller_state(ctl, snapshot)
+                ctl.update_delta_transform()
+                torch.cuda.synchronize()
+                before = ctl.fit_state.global_step.tolist()
+                logs = ctl.update_surrogates()
+                torch.cuda.synchronize()
+                steps = [b - a for a, b in zip(before, ctl.fit_state.global_step.tolist())]
+                st = ctl.fit_state
+                state = {k: getattr(st, k).clone() for k in
+                         ("params", "exp_avg", "exp_avg_sq", "count", "global_step")}
+                out[name] = (logs, steps, state)
+            finally:
+                ctl.logger.finish()
+            del ctl
+            torch.cuda.empty_cache()
+        return out
+
+    out, counts = counted_run("3 controllers + 3 retrains", routes)
+    # Each controller's reset pool launches K1; the fits launch no kernel.
+    if counts != {"K1": 3 * 920, "K2": 0}:
+        raise AssertionError(f"phase 14 launched {counts}, expected K1 only in the 3 "
+                             f"reset pools (2760) and K2 never")
+    for name, (logs, steps, _) in out.items():
+        total, m = logs["t_fit_total"], len(steps)
+        lockstep = name != "--sequential_member_training"
+        line = (f"   {name}: t_fit_total {total:.4f} s, member steps {steps}, epochs "
+                f"{logs['epochs']}, val_loss {logs['val_loss']:.6f}; "
+                f"{total / sum(steps):.4f} s per member-step")
+        if lockstep:
+            masked = 1 - sum(steps) / (m * max(steps))
+            line += (f", {total / max(steps):.4f} s per lock-step step; "
+                     f"{100 * masked:.2f}% of the {m * max(steps)} computed member-steps "
+                     f"were of members already stopped")
+        if "t_fit_capture" in logs:
+            net = total - logs["t_fit_capture"]
+            line += (f"; captures {logs['t_fit_capture']:.4f} s, pool "
+                     f"+{logs['fit_graph_pool_mb']:.1f} MB, {net / max(steps):.4f} s per "
+                     f"lock-step step without them")
+        print(line + f"; {json.dumps({k: v for k, v in logs.items() if k.startswith('t_')})}",
+              flush=True)
+    (glogs, gsteps, gstate), (elogs, esteps, estate) = out["default"], out["--no_fuse_fit"]
+    if "t_fit_capture" not in glogs or "t_fit_val" not in elogs or "t_fit_ready" in elogs:
+        raise AssertionError(f"the routes' fields: {sorted(glogs)}, {sorted(elogs)}")
+    if max(gsteps) != 50:
+        raise AssertionError(f"the default route took {gsteps} steps, not 50")
+    differ = [k for k in gstate if not torch.equal(gstate[k], estate[k])]
+    differ += [k for k in ("val_loss", "elite_scores", "train_loss", "steps", "epochs")
+               if glogs[k] != elogs[k]]
+    if differ or gsteps != esteps:
+        raise AssertionError(f"the graphed fit differs from the eager one in {differ}")
+    print(f"   default (graphed) and --no_fuse_fit equal: parameters, Adam state, "
+          f"global steps, val losses {glogs['elite_scores']}", flush=True)
+
+
 def main() -> int:
+    start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "pdecontrol_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
         return 2
@@ -1239,6 +1358,11 @@ def main() -> int:
     time_world_forms(restarted)
     run_fused_against_eager()
     done("13 fused against eager (--no_fuse_iteration)", t0)
+
+    t0 = phase("14 lock-step fit against one-after-another")
+    run_fit_routes()
+    done("14 lock-step fit against one-after-another", t0)
+    print(f"== phases 1-14: {time.perf_counter() - start:.2f} s in all", flush=True)
 
     print(json.dumps({"kernels": [
         {

@@ -18,6 +18,9 @@ of the port's modules.  Layout rules:
     and bias, and of an ``MLP`` ``linear_l{i}`` -> ``layers.{i}`` with its
     ``Dense_0`` -> ``linear``.  The cells' ``wx`` and ``wh`` and the
     ``DelayCell``'s ``fwd`` keep their names.
+
+``stacked_trainer_state`` carries a whole stacked ensemble trainer state
+over (every member's parameters and Adam moments, by the same rules).
 """
 
 from __future__ import annotations
@@ -106,3 +109,31 @@ def ensemble_state_dicts(stacked: Mapping) -> List[StateDict]:
                 for k, v in tree.items()}
 
     return [state_dict(take(stacked, i)) for i in range(m)]
+
+
+def stacked_trainer_state(modules, params: Mapping, mu: Mapping, nu: Mapping,
+                          count, global_step):
+    """The JAX package's stacked ``TrainerState`` (leading member axis M on
+    every leaf: flax ``params``, optax ``ScaleByAdamState`` ``mu``, ``nu``
+    and ``count``, and ``global_step``, as numpy arrays) -> the port's
+    stacked ``train.trainer.TrainerState`` over ``modules`` (M fresh
+    surrogates of the same factory, in their final dtype and device).
+    Parameters and moments follow the layout rules above; the modules'
+    parameters are loaded and become views of the state's ``params``."""
+    from pdecontrol_tpu_torch.models.surrogate import stack_parameters
+    from pdecontrol_tpu_torch.train.trainer import TrainerState
+
+    for module, sd in zip(modules, ensemble_state_dicts(params), strict=True):
+        module.load_state_dict(sd, strict=True)
+    flat = stack_parameters(modules)
+
+    def stacked(tree):
+        rows = [torch.cat([sd[name].reshape(-1) for name, _ in modules[0].named_parameters()])
+                for sd in ensemble_state_dicts(tree)]
+        return torch.stack(rows).to(flat)
+
+    def counter(x):
+        return torch.as_tensor(np.array(x), dtype=torch.int32, device=flat.device)
+
+    return TrainerState(list(modules), flat, stacked(mu), stacked(nu), counter(count),
+                        counter(global_step))

@@ -33,8 +33,9 @@ class MBPOConfig:
     # SAC) into one program and a whole surrogate fit into one on-device
     # loop.  The port runs the fused iteration as one CUDA graph per horizon,
     # captured at that horizon's first non-retrain iteration (so it has no
-    # precompile ladder: precompile_horizons changes nothing), and the
-    # per-epoch host fit whatever fuse_fit says.
+    # precompile ladder: precompile_horizons changes nothing), and, with
+    # fuse_fit, the lock-step fit's TBPTT and validation steps as CUDA
+    # graphs replayed every epoch (fuse_fit=False: the same fit, eagerly).
     fuse_iteration: bool = True
     fuse_fit: bool = True
     precompile_horizons: bool = True
@@ -86,8 +87,8 @@ class MBPOConfig:
     # ---- ensemble (script.py:60-61)
     num_dynamics_models: int = 3
     num_elite_models: int = 3
-    vmap_ensemble_training: bool = True  # JAX: all members in one program;
-    # the port always fits the members one after another
+    vmap_ensemble_training: bool = True  # all members in lock-step; False
+    # fits them one after another
 
     # ---- SAC (script.py:64-72)
     policy: str = "Gaussian"

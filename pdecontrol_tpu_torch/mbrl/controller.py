@@ -8,8 +8,12 @@ actions (``learning_starts``), then per iteration:
   1. collect ``num_envs x rollout_length`` real samples;
   2. every ``surrogate_train_freq`` samples: refit the delta Normalize over
      the whole replay (mbrl.py:597-602) and
-  3. retrain every ensemble member, one after another, with early stopping
-     on the unscaled free-run val loss, then update the elites;
+  3. retrain every ensemble member with early stopping on the unscaled
+     free-run val loss, then update the elites: by default all members in
+     lock-step (``SurrogateTrainer.fit_ensemble``), on the card each TBPTT
+     step and each validation step a replayed CUDA graph;
+     ``--no_fuse_fit`` runs the same fit eagerly, and
+     ``--sequential_member_training`` fits one member after another;
   4. imagined rollouts from replay starting states at the scheduled horizon;
   5. ``policy_train_steps_per_sample x samples`` SAC updates on a uniform
      mixture of real and imagined transitions (mbrl.py:529-566);
@@ -39,9 +43,9 @@ A resumed run repeats neither the random warmup nor the initial policy
 evaluation (the JAX package repeats both, ``controller.py:1255-1266``): its
 replay, generator and counters are the snapshot's, so it goes on exactly as
 the uninterrupted run would have; only the wall-clock fields restart.
-The JAX package's fused fit, its precompile ladder, the device mesh and
-wandb (logging, image and artifact uploads) are not ported; the options
-that ask for a mesh or for wandb raise.
+The JAX package's precompile ladder, the device mesh and wandb (logging,
+image and artifact uploads) are not ported; the options that ask for a mesh
+or for wandb raise.
 """
 
 from __future__ import annotations
@@ -124,10 +128,12 @@ class PDEModelBasedController:
         self.device = dev = entry_device(device)
         # --debug_nans: finiteness checks at the phase boundaries.
         self.finite = profiling.FiniteChecks() if debug_nans else None
-        # The fused iteration cannot stop at a phase boundary to check it.
+        # The fused iteration and the graphed fit cannot stop to check.
         self.fused = cfg.fuse_iteration and not debug_nans
         if cfg.fuse_iteration and debug_nans:
             print("[fuse] --debug_nans runs the eager phases", flush=True)
+        if cfg.fuse_fit and cfg.vmap_ensemble_training and debug_nans:
+            print("[fuse] --debug_nans runs the eager fit", flush=True)
         torch.manual_seed(cfg.seed)  # module initialisation
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
@@ -179,7 +185,8 @@ class PDEModelBasedController:
         self.agent_obs_shape = tuple(self.tr.raw_to_agent_obs(dummy_obs).shape[1:])
         self.world_action_shape = tuple(self.tr.env_action_to_world(dummy_act).shape[1:])
 
-        # Surrogate ensemble + per-member trainer states.
+        # Surrogate ensemble + the members' stacked trainer state, whose
+        # parameters are the ensemble's.
         delta = self.env.delta
         model_kwargs = {**self.env.scenario, **cfg.model}
         self.loss_fn = make_loss(cfg.loss, self.env.scenario)
@@ -193,7 +200,8 @@ class PDEModelBasedController:
         }
         self.trainer = SurrogateTrainer(self.loss_fn, self.train_cfgs["initial"],
                                         check=self.finite)
-        self.member_states = [self.trainer.init(m) for m in self.ensemble.members]
+        self.fit_state = self.trainer.init_members(self.ensemble.members,
+                                                   self.ensemble.params)
 
         # Replays.
         ep_len = self.env.max_episode_steps
@@ -251,6 +259,8 @@ class PDEModelBasedController:
         # (which a capture needs first: it loads every kernel and sets up
         # every library handle and optimizer state the body touches).
         self.graphs = GraphCache([self.gen]) if dev.type == "cuda" else None
+        self.trainer.fuse_fit = cfg.fuse_fit and not debug_nans
+        self.trainer.graphs = self.graphs if self.trainer.fuse_fit else None
         self._capture_log: Dict[str, float] = {}
         self._pending_log = None
         self._warm = False
@@ -373,7 +383,8 @@ class PDEModelBasedController:
         rows = np.where(fill > 0)[0]
         rng = np.random.default_rng(self.iteration)
         rng.shuffle(rows)
-        start_step = max(st.global_step for st in self.member_states)
+        gsteps = self.fit_state.global_step.tolist()
+        start_step = max(gsteps)
         length0 = tc.tau + int(self.curriculum(iteration=self.iteration, epoch=0,
                                                step=start_step))
         ok = rows[fill[rows] >= length0]
@@ -400,21 +411,37 @@ class PDEModelBasedController:
         val_mask = torch.as_tensor(val_np, device=self.device)
         t_split = time.perf_counter() - t_split0
 
+        fit_args = (self.replay, train_mask, val_mask, self.tr.undscaling,
+                    self.tr.replay_to_world, self.curriculum, self.iteration, self.gen)
+        hints = {"fill": fill, "train_np": train_np, "val_np": val_np}
         t_fit0 = time.perf_counter()
-        self.member_states, scores, logs = self.trainer.fit_ensemble(
-            self.member_states, self.replay, train_mask, val_mask,
-            self.tr.undscaling, self.tr.replay_to_world, self.curriculum,
-            self.iteration, self.gen,
-            min_steps=tc.min_steps, max_steps=tc.max_steps, patience=tc.patience,
-            host_hints={"fill": fill, "train_np": train_np, "val_np": val_np},
-        )
+        if cfg.vmap_ensemble_training:
+            # All members in lock-step, each with its own early stopping.
+            self.fit_state, scores, logs = self.trainer.fit_ensemble(
+                self.fit_state, *fit_args, min_steps=tc.min_steps,
+                max_steps=tc.max_steps, patience=tc.patience,
+                host_hints={**hints, "start_step": start_step})
+            scores = [float(s) for s in scores]
+        else:
+            # One member after another; the record carries the last
+            # member's fit logs, as the JAX package's does, and the timers
+            # of all of them.
+            scores, timers = [], {"t_fit_train": 0.0, "t_fit_val": 0.0}
+            for i in range(self.fit_state.num_members):
+                _, val_loss, logs = self.trainer.fit(
+                    self.fit_state.member(i), *fit_args, min_steps=tc.min_steps,
+                    max_steps=tc.max_steps, patience=tc.patience,
+                    host_hints={**hints, "start_step": gsteps[i]})
+                scores.append(val_loss)
+                for k in timers:
+                    timers[k] += logs[k]
+            logs.update({k: round(v, 4) for k, v in timers.items()})
         logs["t_fit_total"] = round(time.perf_counter() - t_fit0, 4)
         t_post0 = time.perf_counter()
         self.ensemble.elite_mask.copy_(update_elites(
             self.ensemble, torch.as_tensor(scores, device=self.device)).elite_mask)
         self.num_ensemble_updates += 1
         self._train_vis(train_mask, val_mask, length0)
-        scores = [float(s) for s in scores]
         return {"val_loss": float(np.mean(scores)), **logs,
                 "elite_scores": scores,
                 "t_split": round(t_split, 4),

@@ -27,9 +27,13 @@ replayed from then on, and its metrics record is committed one iteration
 late (``t_dispatch``, ``t_ready``; ``t_fused`` on an evaluation iteration);
 ``--no_fuse_iteration`` runs every iteration's phases eagerly, each timed
 after a device synchronisation (``t_collect``, ``t_imagine``, ``t_policy``,
-``t_pull``).  ``--no_fuse_fit`` and ``--sequential_member_training`` are
-accepted and change nothing: the port always runs the per-epoch fit and
-member-by-member training.  ``--checkpoint_freq N`` snapshots the whole
+``t_pull``).  A retrain fits all ensemble members in lock-step, on the
+GPU each TBPTT step and each validation step a replayed CUDA graph, with
+one pull of the members' val losses per epoch (``t_fit_prep``,
+``t_fit_dispatch``, ``t_fit_ready``); ``--no_fuse_fit`` runs the same fit
+eagerly (``t_fit_val`` in place of ``t_fit_ready``), and
+``--sequential_member_training`` fits one member after another, its record
+carrying the last member's fit logs.  ``--checkpoint_freq N`` snapshots the whole
 training state every N iterations into ``<run_dir>/checkpoints`` and
 ``--resume`` carries on from the last snapshot, appending to the same
 ``metrics.jsonl``; ``--profile_dir`` writes a ``torch.profiler`` trace of
@@ -84,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "synchronisation, in place of one CUDA graph per non-retrain "
                         "iteration")
     p.add_argument("--no_fuse_fit", action="store_true",
-                   help="accepted; the port always fits with the per-epoch loop")
+                   help="run the lock-step surrogate fit eagerly, in place of its TBPTT "
+                        "and validation steps as CUDA graphs")
     # General
     p.add_argument("--total_timesteps", type=int, default=1_000_000)
     p.add_argument("--seed", type=int, default=0)
@@ -137,7 +142,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_dynamics_models", type=int, default=3)
     p.add_argument("--num_elite_models", type=int, default=3)
     p.add_argument("--sequential_member_training", action="store_true",
-                   help="accepted; the port always trains members one by one")
+                   help="fit the ensemble members one after another, in place of all "
+                        "of them in lock-step")
     # SAC
     p.add_argument("--policy", type=str, default="Gaussian")
     p.add_argument("--policy_batch_size", type=int, default=256)

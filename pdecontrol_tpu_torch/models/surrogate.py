@@ -24,13 +24,17 @@ has ``stop_gradient`` — the same values and the same gradients.
 
 The ensemble is an ``nn.ModuleList`` of members run one after another; its
 outputs carry a leading member axis ``M`` like the JAX package's stacked,
-vmapped ensemble.
+vmapped ensemble.  The members' parameters live in one ``[M, P]`` tensor
+(``EnsembleState.params``, made by ``stack_parameters``): each member's
+parameters are views of its row, so that the lock-step fit of all members
+(``train/trainer.py``) writes where the world model and the CUDA graphs
+read.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -205,14 +209,58 @@ class PDESurrogate(nn.Module):
         )
 
 
+def stack_parameters(members: Sequence[nn.Module]) -> torch.Tensor:
+    """Move the parameters of the structurally identical ``members`` into
+    one ``[M, P]`` tensor and return it: member ``i``'s parameters become
+    views of row ``i``, in ``named_parameters`` order.  Run it once the
+    members' device and dtype are final (``.to()`` gives a parameter new
+    storage) and before anything notes their addresses."""
+    named = [list(m.named_parameters(remove_duplicate=False)) for m in members]
+    layout = [(name, p.shape) for name, p in named[0]]
+    if any([(n, p.shape) for n, p in params] != layout for params in named):
+        raise ValueError("the members' parameters differ in names or shapes")
+    first = named[0][0][1]
+    if any(p.dtype != first.dtype or p.device != first.device
+           for params in named for _, p in params):
+        raise ValueError("the members' parameters differ in dtype or device")
+    if len({id(p) for _, p in named[0]}) != len(layout):
+        raise ValueError("a parameter shared between submodules cannot be stacked")
+    size = sum(shape.numel() for _, shape in layout)
+    flat = torch.empty((len(members), size), dtype=first.dtype, device=first.device)
+    for row, member, params in zip(flat, members, named):
+        offset = 0
+        for name, p in params:
+            view = row[offset: offset + p.numel()].view(p.shape)
+            with torch.no_grad():
+                view.copy_(p)
+            owner, _, leaf = name.rpartition(".")
+            setattr(member.get_submodule(owner), leaf,
+                    nn.Parameter(view, requires_grad=p.requires_grad))
+            offset += p.numel()
+    return flat
+
+
+def member_axis_views(params: torch.Tensor, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The stacked ``[M, P]`` parameters as ``{name: [M, *shape]}`` views in
+    ``module``'s layout (one member of the stack), for
+    ``torch.func.functional_call`` under ``torch.func.vmap``."""
+    out, offset, m = {}, 0, params.shape[0]
+    for name, p in module.named_parameters():
+        out[name] = params[:, offset: offset + p.numel()].view((m,) + tuple(p.shape))
+        offset += p.numel()
+    return out
+
+
 @dataclasses.dataclass
 class EnsembleState:
     """Ensemble members + elite bookkeeping (reference ``PDEEnsemble``,
-    surrogate.py:22-55).  ``elite_mask`` is a boolean [M]."""
+    surrogate.py:22-55).  ``elite_mask`` is a boolean [M]; ``params`` is
+    the ``[M, P]`` tensor of which the members' parameters are views."""
 
     members: nn.ModuleList
     elite_mask: torch.Tensor
     num_elites: int
+    params: Optional[torch.Tensor] = None
 
     @property
     def num_members(self) -> int:
@@ -226,7 +274,7 @@ def init_ensemble(build, num_members: int, num_elites: Optional[int] = None,
                   device=None) -> EnsembleState:
     """``num_members`` independently initialised surrogates from the
     zero-argument builder ``build`` (initialised from torch's global
-    generator, which the caller seeds)."""
+    generator, which the caller seeds), their parameters stacked."""
     members = nn.ModuleList([build() for _ in range(num_members)]).to(device)
     if num_elites is None:
         num_elites = num_members
@@ -234,6 +282,7 @@ def init_ensemble(build, num_members: int, num_elites: Optional[int] = None,
         members=members,
         elite_mask=torch.ones((num_members,), dtype=torch.bool, device=device),
         num_elites=num_elites,
+        params=stack_parameters(members),
     )
 
 

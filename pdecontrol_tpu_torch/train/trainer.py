@@ -1,6 +1,7 @@
 """Surrogate training: TBPTT train step, free-run validation, early stopping,
-curriculum (port of ``pdecontrol_tpu/train/trainer.py``; reference
-``PDETrainingModule`` under pytorch-lightning).
+curriculum, and the lock-step fit of all ensemble members (port of
+``pdecontrol_tpu/train/trainer.py``; reference ``PDETrainingModule`` under
+pytorch-lightning).
 
   * ``train_step`` == ``training_step`` (training.py:64-130): the chunked
     TBPTT loop is ONE rollout whose ``reencode`` schedule self-forces (and
@@ -14,15 +15,25 @@ curriculum (port of ``pdecontrol_tpu/train/trainer.py``; reference
     reload (mbrl.py:344-382): each epoch draws windows of length
     ``tau + K(curriculum)`` from the replay, one optimizer step per batch,
     then one validation batch; early stopping on the val loss with patience,
-    bounded by min/max optimizer steps.
-  * the optimizer is Adam (``optax.scale_by_adam`` followed by the lr step
-    in the JAX package; ``torch.optim.Adam`` puts eps in the same place),
-    with the learning rate set per epoch (StepLR, training.py:273-278) and
-    optional global-norm clipping (``gradient_clip_val``).
-
-The JAX package's fused epoch and fused whole-fit programs are not ported:
-this is its per-epoch host loop, and ``fit_ensemble`` fits the members one
-after another (its ``--sequential_member_training`` path).
+    bounded by min/max optimizer steps.  It trains one member, and serves
+    the offline evaluation and ``--sequential_member_training``.
+  * ``fit_ensemble`` trains every member in lock-step (the JAX package's
+    vmapped ``fit_ensemble``): one step draws a batch for every member and
+    takes each member's own gradient with ``torch.func.vmap`` over
+    ``torch.func.grad`` of the member module (a convolution with a member
+    axis becomes one grouped convolution); a member whose early stopping
+    tripped is frozen by the ``active`` mask while the rest go on.  Every
+    epoch ends in ONE pull of the members' val losses, on which the host
+    keeps the JAX package's early-stopping bookkeeping.  With ``graphs``
+    set (on the card, ``fuse_fit``) the step and the validation step
+    replay CUDA graphs captured at their first use (``utils/graphs.py``);
+    the JAX package's ``lax.while_loop`` over epochs has no counterpart in
+    a graph without conditional nodes, hence the per-epoch pull.
+  * the optimizer is optax's ``clip_by_global_norm`` (per member, when
+    ``gradient_clip_val``) followed by ``scale_by_adam`` (b1 0.9, b2 0.999,
+    eps 1e-8) and the step ``-lr``, with the learning rate set per epoch
+    (StepLR, training.py:273-278).  Its state is stacked over the members
+    (``TrainerState``); ``fit`` trains one member of the stack in place.
 """
 
 from __future__ import annotations
@@ -30,14 +41,24 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call, grad, vmap
 
 from pdecontrol_tpu_torch.data import replay as R
 from pdecontrol_tpu_torch.envs.transforms import Normalize, SampleTransform
-from pdecontrol_tpu_torch.models.surrogate import AUTOREG, PDESurrogate
+from pdecontrol_tpu_torch.models.surrogate import (
+    AUTOREG,
+    PDESurrogate,
+    member_axis_views,
+    stack_parameters,
+)
+from pdecontrol_tpu_torch.utils.graphs import tensors_of
+
+# optax.scale_by_adam's defaults.
+B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 class TrainConfig(NamedTuple):
@@ -56,12 +77,52 @@ class TrainConfig(NamedTuple):
 
 @dataclasses.dataclass
 class TrainerState:
-    """One member under training: its module (updated in place), its Adam
-    state, and the optimizer steps taken across retrains."""
+    """The training state of M members stacked on a leading member axis (the
+    JAX package's stacked ``TrainerState``): ``params`` [M, P], of which
+    each of ``modules``' parameters are views; optax's Adam state
+    ``exp_avg`` and ``exp_avg_sq`` [M, P] and ``count`` [M]; and the
+    optimizer steps taken across retrains, ``global_step`` [M].  Every
+    update is written in place."""
 
-    module: PDESurrogate
-    optimizer: torch.optim.Optimizer
-    global_step: int = 0
+    modules: List[PDESurrogate]
+    params: torch.Tensor
+    exp_avg: torch.Tensor
+    exp_avg_sq: torch.Tensor
+    count: torch.Tensor
+    global_step: torch.Tensor
+
+    @property
+    def num_members(self) -> int:
+        return self.params.shape[0]
+
+    @property
+    def module(self) -> PDESurrogate:
+        """The one member of a one-member state."""
+        if len(self.modules) != 1:
+            raise ValueError(f"a state of {len(self.modules)} members has no one module")
+        return self.modules[0]
+
+    def member(self, i: int) -> "TrainerState":
+        """Member ``i`` as a one-member state whose tensors are views of
+        this state's."""
+        s = slice(i, i + 1)
+        return TrainerState([self.modules[i]], self.params[s], self.exp_avg[s],
+                            self.exp_avg_sq[s], self.count[s], self.global_step[s])
+
+    def stacked_params(self) -> Dict[str, torch.Tensor]:
+        return member_axis_views(self.params, self.modules[0])
+
+
+@dataclasses.dataclass
+class FitInputs:
+    """What the lock-step step reads besides the state, at fixed addresses so
+    that a CUDA graph of it replays each epoch: the learning rate, the
+    ``active`` mask over members and the split's row masks."""
+
+    lr: torch.Tensor
+    active: torch.Tensor
+    train_mask: torch.Tensor
+    val_mask: torch.Tensor
 
 
 def tbtt_reencode_mask(t_total: int, tbtt: int) -> np.ndarray:
@@ -84,43 +145,69 @@ def _check_windows(fill: np.ndarray, train_np: np.ndarray, val_np: np.ndarray,
             )
 
 
-def _clip_by_global_norm_(params: List[torch.Tensor], max_norm: float) -> None:
-    """optax ``clip_by_global_norm``: scale all grads by ``max_norm / norm``
-    when the global norm exceeds ``max_norm``."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    for g in grads:
-        g.mul_(scale)
+def _host_inputs(hints: Dict, replay: R.ReplayState, train_mask, val_mask):
+    fill = np.asarray(hints["fill"]) if "fill" in hints else replay.fill.cpu().numpy()
+    train_np = (np.asarray(hints["train_np"]).astype(bool) if "train_np" in hints
+                else train_mask.cpu().numpy().astype(bool))
+    val_np = (np.asarray(hints["val_np"]).astype(bool) if "val_np" in hints
+              else val_mask.cpu().numpy().astype(bool))
+    return fill, train_np, val_np
+
+
+def _batches(fill: np.ndarray, train_np: np.ndarray, length: int, batch_size: int) -> int:
+    """Epoch size = non-overlapping window count over train episodes
+    (SubSeqDataset default stride == length, dataset.py:54-58)."""
+    nwin = int(np.sum(np.maximum((fill[train_np] - length) // length + 1, 0)))
+    return max(nwin // batch_size, 1)
 
 
 class SurrogateTrainer:
     def __init__(self, loss_fn: Callable, config: TrainConfig,
                  check: Optional[Callable] = None):
         """``check``, if given, is called with every TBPTT step's loss
-        (``utils.profiling.FiniteChecks``, the ``--debug_nans`` option)."""
+        (``utils.profiling.FiniteChecks``, the ``--debug_nans`` option); it
+        reads the host, so it runs on the eager route only."""
         assert config.tbtt > config.tau, (
             "Chunk size of TBPTT must be larger than warm-up length."
         )
         self.loss_fn = loss_fn
         self.config = config
         self.check = check
+        # The lock-step fit: ``fuse_fit`` names the JAX package's default
+        # route (its record's pull time is ``t_fit_ready``, else
+        # ``t_fit_val``); ``graphs``, a ``utils.graphs.GraphCache`` on the
+        # card, replays its steps as CUDA graphs.
+        self.fuse_fit = True
+        self.graphs = None
+        self._inputs: Optional[FitInputs] = None
 
     # ------------------------------------------------------------------ init
     def init(self, module: PDESurrogate) -> TrainerState:
-        opt = torch.optim.Adam(module.parameters(), lr=self.config.lr,
-                               betas=(0.9, 0.999), eps=1e-8)
-        return TrainerState(module=module, optimizer=opt, global_step=0)
+        """A one-member state for ``module``, whose parameters move into a
+        ``[1, P]`` tensor."""
+        return self.init_members([module], stack_parameters([module]))
+
+    def init_members(self, modules: Sequence[PDESurrogate], params: torch.Tensor
+                     ) -> TrainerState:
+        """A fresh state for ``modules``, whose parameters are views of the
+        rows of ``params`` (``models.surrogate.stack_parameters``)."""
+        m = params.shape[0]
+        zeros = torch.zeros((m,), dtype=torch.int32, device=params.device)
+        return TrainerState(list(modules), params, torch.zeros_like(params),
+                            torch.zeros_like(params), zeros, zeros.clone())
 
     # ------------------------------------------------------------- core math
-    def _losses(self, module: PDESurrogate, states, actions, und: Normalize):
+    def _losses(self, module: PDESurrogate, states, actions, und: Normalize,
+                params: Optional[Dict[str, torch.Tensor]] = None):
         """Elementwise training loss tensor: [B, T-1, C, H] on the deltas of
         an AutoReg module, [B, T, C, H] on the decoded states of a Latent
-        one."""
+        one.  ``params`` replaces the module's own parameters."""
         cfg = self.config
         mask = tbtt_reencode_mask(actions.shape[1], cfg.tbtt)
-        roll = module.rollout(states[:, : cfg.tau], actions, dscaling=und.inv,
-                              reencode=mask)
+        args = (states[:, : cfg.tau], actions)
+        kwargs = {"dscaling": und.inv, "reencode": mask}
+        roll = (module(*args, **kwargs) if params is None
+                else functional_call(module, params, args, kwargs))
         if module.mode == AUTOREG:
             out = roll.deltas[:, :-1]
             target = und.apply(torch.diff(states, dim=1) / module.delta)
@@ -128,22 +215,44 @@ class SurrogateTrainer:
         decoded = torch.cat([states[:, :1], roll.outputs[:, :-1]], dim=1)
         return self.loss_fn(decoded, states), roll
 
+    @torch.no_grad()
+    def _adam_(self, state: TrainerState, grads: torch.Tensor, lr,
+               active: Optional[torch.Tensor] = None) -> None:
+        """``clip_by_global_norm`` of each member's own gradient, optax's
+        ``scale_by_adam`` and the step ``-lr * update`` on the stacked
+        ``[M, P]`` gradient, written into ``state``; with ``active`` only the
+        members where it is true change (``jnp.where(active, new, old)``
+        over the whole state, the JAX package's ``one_train``)."""
+        clip = self.config.gradient_clip_val
+        if clip:
+            norm = torch.sqrt(torch.sum(grads * grads, dim=1, keepdim=True))
+            grads = torch.where(norm < clip, grads, grads / norm * clip)
+        count = state.count + 1
+        mu = (1 - B1) * grads + B1 * state.exp_avg
+        nu = (1 - B2) * (grads * grads) + B2 * state.exp_avg_sq
+        t = count.to(grads.dtype)[:, None]
+        update = (mu / (1 - B1 ** t)) / (torch.sqrt(nu / (1 - B2 ** t)) + EPS)
+        new = (state.params - lr * update, mu, nu, count, state.global_step + 1)
+        old = (state.params, state.exp_avg, state.exp_avg_sq, state.count,
+               state.global_step)
+        for dst, src in zip(old, new):
+            if active is not None:
+                src = torch.where(active.view((-1,) + (1,) * (src.ndim - 1)), src, dst)
+            dst.copy_(src)
+
     def train_step(self, state: TrainerState, states, actions, und: Normalize,
-                   lr: float) -> Tuple[TrainerState, Dict[str, torch.Tensor]]:
-        elems, roll = self._losses(state.module, states, actions, und)
+                   lr) -> Tuple[TrainerState, Dict[str, torch.Tensor]]:
+        """One TBPTT step of a one-member state."""
+        module = state.module
+        params = list(module.parameters())
+        elems, roll = self._losses(module, states, actions, und)
         loss = torch.mean(elems)
         if self.check is not None:
             self.check("the surrogate fit (TBPTT step)", train_loss=loss)
-        opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.config.gradient_clip_val:
-            _clip_by_global_norm_(list(state.module.parameters()),
-                                  self.config.gradient_clip_val)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        state.global_step += 1
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(1, -1)
+                          for p, g in zip(params, grads)], dim=1)
+        self._adam_(state, flat, lr)
         deltas = roll.deltas.detach()
         metrics = {
             "train_loss": loss.detach(),
@@ -155,9 +264,14 @@ class SurrogateTrainer:
 
     @torch.no_grad()
     def val_step(self, module: PDESurrogate, states, actions, und: Normalize,
-                 stransf: SampleTransform) -> Dict[str, torch.Tensor]:
+                 stransf: SampleTransform,
+                 params: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
         cfg = self.config
-        roll = module.rollout(states[:, : cfg.tau], actions, dscaling=und.inv)
+        args = (states[:, : cfg.tau], actions)
+        kwargs = {"dscaling": und.inv}
+        roll = (module(*args, **kwargs) if params is None
+                else functional_call(module, params, args, kwargs))
         decoded = torch.cat([states[:, :1], roll.outputs[:, :-1]], dim=1)
 
         outdeltas = roll.deltas[:, :-1]
@@ -175,6 +289,55 @@ class SurrogateTrainer:
             "val_delta_loss": delta_loss,
             "val_scaled_loss": scaled_loss,
         }
+
+    # ---------------------------------------------------- lock-step members
+    def lockstep_train_step(self, state: TrainerState, states, actions, und: Normalize,
+                            lr, active: torch.Tensor) -> torch.Tensor:
+        """One TBPTT step of every member on its own batch (``states`` and
+        ``actions`` [M, B, T, ...]): the JAX package's vmapped ``one_train``
+        without its draw.  Returns the members' train losses [M]."""
+        module = state.modules[0]
+        stacked = state.stacked_params()
+
+        def member_loss(params, s, a):
+            elems, _ = self._losses(module, s, a, und, params=params)
+            loss = torch.mean(elems)
+            return loss, loss
+
+        if self.check is not None:
+            # Before the backward pass, which anomaly detection watches.
+            with torch.no_grad():
+                losses = vmap(member_loss)(stacked, states, actions)[0]
+            self.check("the surrogate fit (TBPTT step)", train_loss=losses)
+        grads, losses = vmap(grad(member_loss, has_aux=True))(stacked, states, actions)
+        m = state.num_members
+        flat = torch.cat([grads[name].reshape(m, -1) for name in stacked], dim=1)
+        self._adam_(state, flat, lr, active)
+        return losses
+
+    def lockstep_val_step(self, state: TrainerState, states, actions, und: Normalize,
+                          stransf: SampleTransform) -> Dict[str, torch.Tensor]:
+        """``val_step`` of every member on its own batch: each output gains a
+        leading member axis (the JAX package's vmapped ``one_val``)."""
+        module = state.modules[0]
+        return vmap(lambda p, s, a: self.val_step(module, s, a, und, stransf, params=p))(
+            state.stacked_params(), states, actions)
+
+    # ----------------------------------------------------------------- draws
+    def _draw(self, replay, generator, length: int, mask, stransf):
+        """One batch of windows (obs, actions) for the one-member fit."""
+        batch = stransf(R.sample_windows(replay, generator, self.config.batch_size,
+                                         length, mask))
+        return batch.obs, batch.actions
+
+    def _draw_members(self, replay, generator, m: int, length: int, mask, stransf):
+        """A batch for each of ``m`` members, stopped or not (so the stream
+        does not depend on which members stopped), as one draw of
+        ``m * batch_size`` windows: (obs, actions) [M, B, ...]."""
+        bs = self.config.batch_size
+        batch = stransf(R.sample_windows(replay, generator, m * bs, length, mask))
+        return tuple(x.reshape((m, bs) + tuple(x.shape[1:]))
+                     for x in (batch.obs, batch.actions))
 
     # ------------------------------------------------------------------- fit
     def fit(
@@ -194,11 +357,12 @@ class SurrogateTrainer:
         max_epochs: Optional[int] = None,
         host_hints: Optional[Dict] = None,
     ) -> Tuple[TrainerState, float, Dict[str, float]]:
-        """Per-epoch host loop for one member.  Returns the final state, the
-        last val loss (the elite score, mbrl.py:595), and logs.
+        """Per-epoch host loop for a one-member state (``TrainerState.member``
+        of a stack trains that member in place).  Returns the final state,
+        the last val loss (the elite score, mbrl.py:595), and logs.
 
-        ``host_hints`` may carry host copies of ``fill``, ``train_np`` and
-        ``val_np`` that the caller already holds.
+        ``host_hints`` may carry host copies of ``fill``, ``train_np``,
+        ``val_np`` and ``start_step`` that the caller already holds.
         """
         cfg = self.config
         min_steps = cfg.min_steps if min_steps is None else min_steps
@@ -206,13 +370,10 @@ class SurrogateTrainer:
         patience = cfg.patience if patience is None else patience
         max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
         hints = host_hints or {}
-        fill = np.asarray(hints["fill"]) if "fill" in hints else replay.fill.cpu().numpy()
-        train_np = (np.asarray(hints["train_np"]).astype(bool) if "train_np" in hints
-                    else train_mask.cpu().numpy().astype(bool))
-        val_np = (np.asarray(hints["val_np"]).astype(bool) if "val_np" in hints
-                  else val_mask.cpu().numpy().astype(bool))
+        fill, train_np, val_np = _host_inputs(hints, replay, train_mask, val_mask)
 
-        start_step = state.global_step
+        start_step = (int(hints["start_step"]) if "start_step" in hints
+                      else int(state.global_step[0]))
         best, wait = math.inf, 0
         val_loss = math.nan
         logs: Dict[str, float] = {}
@@ -227,11 +388,7 @@ class SurrogateTrainer:
             length = cfg.tau + k
             lr = cfg.lr * (cfg.lr_gamma ** (epoch // cfg.step_size))
             _check_windows(fill, train_np, val_np, length)
-
-            # Epoch size = non-overlapping window count over train episodes
-            # (SubSeqDataset default stride == length, dataset.py:54-58).
-            nwin = int(np.sum(np.maximum((fill[train_np] - length) // length + 1, 0)))
-            nb = max(nwin // cfg.batch_size, 1)
+            nb = _batches(fill, train_np, length, cfg.batch_size)
 
             t0 = time.perf_counter()
             tm = None
@@ -239,16 +396,14 @@ class SurrogateTrainer:
                 if max_steps and steps_taken >= max_steps:
                     stop = True
                     break
-                batch = stransf(R.sample_windows(replay, generator, cfg.batch_size,
-                                                 length, train_mask))
-                state, tm = self.train_step(state, batch.obs, batch.actions, und, lr)
+                obs, actions = self._draw(replay, generator, length, train_mask, stransf)
+                state, tm = self.train_step(state, obs, actions, und, lr)
                 steps_taken += 1
             train_loss = math.nan if tm is None else float(tm["train_loss"])
             t1 = time.perf_counter()
 
-            batch = stransf(R.sample_windows(replay, generator, cfg.batch_size,
-                                             length, val_mask))
-            vm = self.val_step(state.module, batch.obs, batch.actions, und, stransf)
+            obs, actions = self._draw(replay, generator, length, val_mask, stransf)
+            vm = self.val_step(state.module, obs, actions, und, stransf)
             val_loss = float(vm["val_loss"])
             t_train += t1 - t0
             t_val += time.perf_counter() - t1
@@ -278,9 +433,47 @@ class SurrogateTrainer:
         logs["t_fit_val"] = round(t_val, 4)
         return state, val_loss, logs
 
+    # ------------------------------------------------------- lock-step fit
+    def _fit_inputs(self, state: TrainerState, rows: int) -> FitInputs:
+        """The lock-step step's per-epoch inputs, made once per shape."""
+        p = state.params
+        inp = self._inputs
+        if (inp is None or inp.active.shape[0] != state.num_members
+                or inp.train_mask.shape[0] != rows or inp.lr.device != p.device
+                or inp.lr.dtype != p.dtype):
+            mask = torch.zeros((rows,), dtype=torch.bool, device=p.device)
+            inp = self._inputs = FitInputs(
+                lr=torch.zeros((), dtype=p.dtype, device=p.device),
+                active=torch.ones((state.num_members,), dtype=torch.bool, device=p.device),
+                train_mask=mask, val_mask=mask.clone())
+        return inp
+
+    def _run(self, key: Tuple, body: Callable[[], torch.Tensor],
+             state: Sequence[torch.Tensor], captured: List) -> torch.Tensor:
+        """``body`` eagerly, or its CUDA graph under ``key``: the first call
+        of a key runs eagerly, as a real step, and captures the graph after
+        it (the capture launches nothing and leaves the state as it was);
+        every later call replays it.  A failed capture or replay raises."""
+        if self.graphs is None:
+            return body()
+        graph = self.graphs.get(key)
+        if graph is None:
+            out = body()
+            try:
+                captured.append(self.graphs.capture(key, body, state))
+            except Exception as e:
+                raise RuntimeError(f"capturing the surrogate fit's {key[0]} {key} as a "
+                                   f"CUDA graph failed: {e}") from e
+            return out
+        try:
+            return graph.replay(state)
+        except Exception as e:
+            raise RuntimeError(f"replaying the surrogate fit's {key[0]} {key} failed: "
+                               f"{e}") from e
+
     def fit_ensemble(
         self,
-        states: List[TrainerState],
+        state: TrainerState,
         replay: R.ReplayState,
         train_mask: torch.Tensor,
         val_mask: torch.Tensor,
@@ -294,28 +487,117 @@ class SurrogateTrainer:
         patience: Optional[int] = None,
         max_epochs: Optional[int] = None,
         host_hints: Optional[Dict] = None,
-    ) -> Tuple[List[TrainerState], np.ndarray, Dict[str, float]]:
-        """Fit every member, one after another, each with its own early
-        stopping (the reference's sequential per-member ``trainer.fit``,
-        mbrl.py:408).  Returns the states, per-member val losses and logs."""
-        val_losses, member_logs = [], []
-        for i, st in enumerate(states):
-            states[i], vl, logs = self.fit(
-                st, replay, train_mask, val_mask, und, stransf, curriculum,
-                iteration, generator, min_steps=min_steps, max_steps=max_steps,
-                patience=patience, max_epochs=max_epochs, host_hints=host_hints,
-            )
-            val_losses.append(vl)
-            member_logs.append(logs)
-        last = member_logs[-1]
-        logs = {
-            "train_loss": float(np.mean([m["train_loss"] for m in member_logs])),
-            "val_loss": float(np.mean(val_losses)),
-            "epochs": max(m["epochs"] for m in member_logs),
-            "curriculum_K": last["curriculum_K"],
-            "lr": last["lr"],
-            "steps": max(m["steps"] for m in member_logs),
-            "t_fit_train": round(sum(m["t_fit_train"] for m in member_logs), 4),
-            "t_fit_val": round(sum(m["t_fit_val"] for m in member_logs), 4),
-        }
-        return states, np.asarray(val_losses), logs
+    ) -> Tuple[TrainerState, np.ndarray, Dict[str, float]]:
+        """Train ALL members of ``state`` in lock-step, each with its own
+        early stopping (the JAX package's ``fit_ensemble``: its per-epoch
+        host loop, whose bookkeeping its whole-fit program replays).
+        Returns the state, the per-member val losses and the logs."""
+        cfg = self.config
+        min_steps = cfg.min_steps if min_steps is None else min_steps
+        max_steps = cfg.max_steps if max_steps is None else max_steps
+        patience = cfg.patience if patience is None else patience
+        max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
+        hints = host_hints or {}
+        if self.graphs is not None:
+            if self.check is not None:
+                raise ValueError("the graphed fit cannot run the finite checks")
+            if not any(g is generator for g in self.graphs.generators):
+                raise ValueError("the graphed fit must draw from its graphs' generator")
+
+        t_prep0 = time.perf_counter()
+        m = state.num_members
+        fill, train_np, val_np = _host_inputs(hints, replay, train_mask, val_mask)
+        # Cumulative step basis so a steptype='step' curriculum advances
+        # across retrains (matches fit's start_step + steps_taken).
+        start_step = (int(hints["start_step"]) if "start_step" in hints
+                      else int(state.global_step.max()))
+        inp = self._fit_inputs(state, train_mask.shape[0])
+        inp.train_mask.copy_(train_mask)
+        inp.val_mask.copy_(val_mask)
+        graph_state = tensors_of(state, replay, und, stransf, inp)
+        captured: List = []
+
+        best = np.full(m, np.inf)
+        wait = np.zeros(m, int)
+        stopped = np.zeros(m, bool)
+        val_losses = np.full(m, np.nan)
+        steps_taken = np.zeros(m, int)
+        epoch = 0
+        last_tl = float("nan")
+        logs: Dict[str, float] = {}
+        t_prep = time.perf_counter() - t_prep0
+        t_dispatch = t_pull = 0.0
+
+        while not stopped.all() and epoch < max_epochs:
+            k = int(curriculum(iteration=iteration, epoch=epoch,
+                               step=start_step + int(steps_taken.max())))
+            length = cfg.tau + k
+            lr = cfg.lr * (cfg.lr_gamma ** (epoch // cfg.step_size))
+            _check_windows(fill, train_np, val_np, length)
+            nb = _batches(fill, train_np, length, cfg.batch_size)
+            nb_eff = nb
+            if max_steps:
+                nb_eff = max(0, min(nb, max_steps - int(steps_taken.max())))
+
+            def train_body(length=length):
+                obs, actions = self._draw_members(replay, generator, m, length,
+                                                  inp.train_mask, stransf)
+                return self.lockstep_train_step(state, obs, actions, und, inp.lr,
+                                                inp.active)
+
+            def val_body(length=length):
+                obs, actions = self._draw_members(replay, generator, m, length,
+                                                  inp.val_mask, stransf)
+                return self.lockstep_val_step(state, obs, actions, und,
+                                              stransf)["val_loss"]
+
+            t0 = time.perf_counter()
+            inp.lr.fill_(lr)
+            inp.active.copy_(torch.as_tensor(~stopped))
+            tl = None
+            for _ in range(nb_eff):
+                # The clip is read when the step is captured, so it keys it.
+                tl = self._run(("fit_step", length, m, cfg.batch_size, cfg.tau, cfg.tbtt,
+                                cfg.gradient_clip_val), train_body, graph_state, captured)
+            vl = self._run(("fit_val", length, m, cfg.batch_size), val_body, graph_state,
+                           captured)
+            steps_taken[~stopped] += nb_eff
+            if max_steps and nb_eff < nb:
+                stopped[:] = True
+            t_dispatch += time.perf_counter() - t0
+
+            # The epoch's one pull: the val losses and the mean over all
+            # members of the last batch's train loss.
+            t0 = time.perf_counter()
+            pulled = (vl if tl is None else torch.cat([vl, torch.mean(tl)[None]]))
+            pulled = pulled.to("cpu", torch.float64).numpy()
+            vl = pulled[:m]
+            if tl is not None:
+                last_tl = float(pulled[m])
+            t_pull += time.perf_counter() - t0
+            val_losses = np.where(stopped, val_losses, vl)
+
+            improved = vl < best
+            wait = np.where(stopped | improved, np.where(improved, 0, wait), wait + 1)
+            best = np.minimum(best, np.where(stopped, best, vl))
+            newly = (~stopped) & (wait >= patience) & (steps_taken >= min_steps)
+            stopped |= newly
+            if max_steps and steps_taken.max() >= max_steps:
+                stopped[:] = True
+            epoch += 1
+            logs = {
+                "train_loss": last_tl,
+                "val_loss": float(np.mean(val_losses)),
+                "epochs": epoch,
+                "curriculum_K": k,
+                "lr": lr,
+            }
+
+        logs["steps"] = int(steps_taken.max())
+        logs["t_fit_prep"] = round(t_prep, 4)
+        logs["t_fit_dispatch"] = round(t_dispatch, 4)
+        logs["t_fit_ready" if self.fuse_fit else "t_fit_val"] = round(t_pull, 4)
+        if captured:
+            logs["t_fit_capture"] = round(sum(g.seconds for g in captured), 4)
+            logs["fit_graph_pool_mb"] = round(sum(g.pool_bytes for g in captured) / 1e6, 3)
+        return state, val_losses, logs

@@ -8,6 +8,14 @@ buffers, the env state, the reset pool, the random generator's state and the
 host counters.  A run stopped after a save and started again with
 ``--resume`` carries on as the uninterrupted run would have.
 
+The members' Adam state is stacked over the members
+(``train/trainer.py``'s ``TrainerState``) whichever route fits them; a
+snapshot holds it member by member in the format of ``torch.optim.Adam``'s
+``state_dict()`` (each parameter's ``exp_avg``, ``exp_avg_sq`` and
+``step``, no entries before the first step) beside the member's
+``global_step``, so that snapshots of every route, and those written
+before the members were stacked, restore under every route.
+
 Design:
 
 * The controller updates its replays, modules and optimizer states *in
@@ -189,10 +197,7 @@ def controller_state(ctl) -> Dict[str, Any]:
             "members": [m.state_dict() for m in ctl.ensemble.members],
             "elite_mask": ctl.ensemble.elite_mask,
         },
-        "member_states": [
-            {"optimizer": st.optimizer.state_dict(), "global_step": st.global_step}
-            for st in ctl.member_states
-        ],
+        "member_states": member_states(ctl.fit_state, ctl.trainer.config.lr),
         "sac_state": {
             "policy": sac.policy.state_dict(),
             "critic": sac.critic.state_dict(),
@@ -217,6 +222,54 @@ def controller_state(ctl) -> Dict[str, Any]:
     }
 
 
+def _member_slices(fit_state, i: int):
+    """Member ``i``'s parameter-shaped views of the stacked Adam moments."""
+    offset = 0
+    for p in fit_state.modules[i].parameters():
+        s = slice(offset, offset + p.numel())
+        offset += p.numel()
+        yield fit_state.exp_avg[i, s].view(p.shape), fit_state.exp_avg_sq[i, s].view(p.shape)
+
+
+def member_states(fit_state, lr: float) -> List[Dict[str, Any]]:
+    """Each member's ``{"optimizer": Adam state_dict, "global_step": int}``
+    from the stacked trainer state (moments as views of the live tensors,
+    the counts as host tensors, as ``torch.optim.Adam`` keeps them)."""
+    counts = fit_state.count.tolist()
+    steps = fit_state.global_step.tolist()
+    out = []
+    for i, module in enumerate(fit_state.modules):
+        groups = torch.optim.Adam(module.parameters(), lr=lr, betas=(0.9, 0.999),
+                                  eps=1e-8).state_dict()["param_groups"]
+        state = {}
+        if counts[i]:
+            state = {j: {"step": torch.tensor(float(counts[i])), "exp_avg": mu,
+                         "exp_avg_sq": nu}
+                     for j, (mu, nu) in enumerate(_member_slices(fit_state, i))}
+        out.append({"optimizer": {"state": state, "param_groups": groups},
+                    "global_step": steps[i]})
+    return out
+
+
+def load_member_states(fit_state, saved: List[Dict[str, Any]]) -> None:
+    """Write ``member_states``' snapshot into the stacked trainer state."""
+    if len(saved) != fit_state.num_members:
+        raise ValueError(f"incompatible checkpoint: {len(saved)} members, the "
+                         f"controller has {fit_state.num_members}")
+    with torch.no_grad():
+        for i, entry in enumerate(saved):
+            state = entry["optimizer"]["state"]
+            count = 0
+            for j, (mu, nu) in enumerate(_member_slices(fit_state, i)):
+                s = state.get(j)
+                mu.copy_(s["exp_avg"] if s else torch.zeros_like(mu))
+                nu.copy_(s["exp_avg_sq"] if s else torch.zeros_like(nu))
+                if s:
+                    count = int(s["step"])
+            fit_state.count[i] = count
+            fit_state.global_step[i] = int(entry["global_step"])
+
+
 def _load_optimizer(opt: torch.optim.Optimizer, state: Dict[str, Any]) -> None:
     # Adam keeps its step counters on the host unless it is capturable or
     # fused; a snapshot read straight onto the GPU would leave them there.
@@ -239,9 +292,7 @@ def load_controller_state(ctl, state: Dict[str, Any]) -> None:
     for member, sd in zip(ctl.ensemble.members, state["ensemble"]["members"]):
         member.load_state_dict(sd)
     ctl.ensemble = ctl.ensemble.replace(elite_mask=state["ensemble"]["elite_mask"].to(dev))
-    for st, saved in zip(ctl.member_states, state["member_states"]):
-        _load_optimizer(st.optimizer, saved["optimizer"])
-        st.global_step = int(saved["global_step"])
+    load_member_states(ctl.fit_state, state["member_states"])
 
     sac, saved = ctl.sac_state, state["sac_state"]
     for name in ("policy", "critic", "target"):

@@ -3,22 +3,25 @@
 Per-iteration wall time is taken from the committed ``time`` field deltas
 (which sum to the run's total by construction), bucketed into warmup /
 steady / retrain / eval iterations, and the retrain bucket is broken down
-into its logged sub-fields (t_delta, t_split, t_fit_train, t_fit_val,
-t_post, t_gc) with the residual printed, never silently dropped.  The fused
+into its logged sub-fields (t_delta, t_split, the fit's timers, t_post,
+t_gc) with the residual printed, never silently dropped.  The fit's timers
+are those of its route, as in the JAX package's stream: ``t_fit_prep``,
+``t_fit_dispatch`` and ``t_fit_ready`` (the lock-step fit, by default) or
+``t_fit_val`` (``--no_fuse_fit``), and ``t_fit_train`` and ``t_fit_val``
+(``--sequential_member_training``, summed over the members).  The fused
 iterations' fields are summed beside the buckets: ``t_dispatch`` (host time
 to launch the iteration), ``t_ready`` (dispatch to the record's late pull,
 which spans the next dispatch and so bounds the device time from above),
-``t_fused`` (an evaluation iteration's dispatch and pull) and ``t_capture``
-(the CUDA graph captures), as the JAX package's stream carries the first
-three.
+``t_fused`` (an evaluation iteration's dispatch and pull), ``t_capture``
+(the CUDA graph captures) and ``t_fit_capture`` (the fit's captures, which
+its ``t_fit_dispatch`` holds), as the JAX package's stream carries the
+first three.
 
 Usage: ``python -m pdecontrol_tpu_torch.utils.waterfall runs/ks50k/metrics.jsonl``
 
-A copy of ``pdecontrol_tpu.utils.waterfall`` (plain Python) that reads the
-port's fit timers: the port's per-epoch fit logs ``t_fit_train`` and
-``t_fit_val`` where the JAX package's fused fit logs ``t_fit_prep``,
-``t_fit_dispatch`` and ``t_fit_ready``.  A resumed run's ``time`` restarts
-at the resume, so analyse the stretches before and after it separately.
+A copy of ``pdecontrol_tpu.utils.waterfall`` (plain Python) with the port's
+fields.  A resumed run's ``time`` restarts at the resume, so analyse the
+stretches before and after it separately.
 
 Reference contrast: the reference logs wall-clock only (mbrl.py:385,624).
 """
@@ -34,10 +37,10 @@ from typing import Dict, List
 PHASE_FIELDS = [
     "t_collect", "t_surrogate", "t_imagine", "t_policy", "t_pull", "t_eval",
 ]
-FUSED_FIELDS = ["t_dispatch", "t_ready", "t_fused", "t_capture"]
+FUSED_FIELDS = ["t_dispatch", "t_ready", "t_fused", "t_capture", "t_fit_capture"]
 # Sub-fields of t_surrogate; t_gc overlaps (GC pauses inside the others)
 # and is reported separately, not summed.
-FIT_FIELDS = ["t_fit_train", "t_fit_val"]
+FIT_FIELDS = ["t_fit_prep", "t_fit_dispatch", "t_fit_ready", "t_fit_train", "t_fit_val"]
 RETRAIN_FIELDS = ["t_delta", "t_split", *FIT_FIELDS, "t_post"]
 
 

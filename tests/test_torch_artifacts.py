@@ -131,9 +131,12 @@ def test_waterfall_closes_on_a_port_run(run_dir):
     assert out["total_s"] == round(records[-1]["time"], 1)
     assert out["retrain"]["n"] == 2 and out["steady"]["n"] + out["eval"]["n"] == 6
     sub = out["retrain"]["surrogate_sub"]
-    fit = sum(r.get("t_fit_train", 0) + r.get("t_fit_val", 0) for r in records)
+    # The default route's fit timers (the lock-step fit).
+    assert all({"t_fit_prep", "t_fit_dispatch", "t_fit_ready"} <= set(r)
+               for r in records if "t_surrogate" in r)
+    fit = sum(r.get(f, 0) for r in records for f in waterfall.FIT_FIELDS)
     assert fit > 0
-    assert math.isclose(sub.get("t_fit_train", 0) + sub.get("t_fit_val", 0), fit,
+    assert math.isclose(sum(sub.get(f, 0) for f in waterfall.FIT_FIELDS), fit,
                         abs_tol=0.11)
     # The fit's own residual closes on the port's timers (not None, small).
     assert out["retrain"]["fit_internal_residual_s"] is not None

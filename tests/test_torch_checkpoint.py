@@ -234,10 +234,16 @@ def test_controller_checkpoint_roundtrip(tmp_path, halfway):
     assert ctl2.num_pol_updates == ctl.num_pol_updates
     assert ctl2.num_ensemble_updates == ctl.num_ensemble_updates
     _assert_same(C.controller_state(ctl2), C.controller_state(ctl))
-    # ... into its own modules, which its optimizers still point at ...
-    for st in ctl2.member_states:
-        params = {id(p) for g in st.optimizer.param_groups for p in g["params"]}
-        assert params == {id(p) for p in st.module.parameters()}
+    # ... into its own modules, whose parameters are still views of the
+    # stacked state that the fit writes, and which its optimizers still
+    # point at ...
+    flat = ctl2.fit_state.params
+    assert flat is ctl2.ensemble.params
+    for i, member in enumerate(ctl2.ensemble.members):
+        for p in member.parameters():
+            assert p.untyped_storage().data_ptr() == flat.untyped_storage().data_ptr()
+            offset = p.storage_offset() - flat.storage_offset()
+            assert i * flat.shape[1] <= offset < (i + 1) * flat.shape[1]
     params = {id(p) for g in ctl2.sac_state.policy_opt.param_groups for p in g["params"]}
     assert params == {id(p) for p in ctl2.sac_state.policy.parameters()}
     # ... and it can go on learning.

@@ -14,7 +14,10 @@ fused iteration's CUDA graph to its eager body: a capture that leaves the
 generator and the counters as they were, a replay equal to the eager
 iteration in every tensor and record field, launch counts that see the
 replay, a body that waits for nothing on the host, and two horizons' graphs
-in one pool.  The group after it
+in one pool.  Then the lock-step fit of the members: replayed from its
+graphs it equals the eager fit bit for bit, a capture leaves the state and
+the generator as they were, and a rebound parameter makes a replay raise.
+The group after it
 holds each surrogate family's rollout and a Burgers control period on the
 card to the same computation on the CPU (rtol 3e-5, atol 3e-6, the float32
 tolerance of tests/test_env_solvers.py).  Every test here
@@ -441,7 +444,8 @@ def test_graphs_of_two_horizons_share_one_pool(dev, tmp_path):
             for _ in range(3):
                 ctl._run_iteration()
             ctl._flush_pending_log()
-        assert sorted(key[1] for key in graphed.graphs.graphs) == [2, 3]
+        horizons = [key[1] for key in graphed.graphs.graphs if key[0] not in FIT_GRAPHS]
+        assert sorted(horizons) == [2, 3]
         assert not eager.graphs.graphs
         a = dict(_tensors(C.controller_state(graphed)))
         b = dict(_tensors(C.controller_state(eager)))
@@ -460,6 +464,100 @@ def test_graphs_of_two_horizons_share_one_pool(dev, tmp_path):
     finally:
         graphed.logger.finish()
         eager.logger.finish()
+
+
+# ------------------------------------------- the lock-step fit as graphs
+FIT_GRAPHS = ("fit_step", "fit_val")
+
+
+def _fit_state(ctl):
+    st = ctl.fit_state
+    return {"params": st.params, "exp_avg": st.exp_avg, "exp_avg_sq": st.exp_avg_sq,
+            "count": st.count, "global_step": st.global_step}
+
+
+@pytest.fixture
+def fitted(dev, tmp_path):
+    """Three members of a tiny controller after the warm-up and iteration 0
+    (its retrain captured the fit's two graphs), and a controller with
+    ``--no_fuse_fit`` loaded with the same state; both retrain once more."""
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    flags = ("--checkpoint_freq", "0", "--total_timesteps", "10",
+             "--num_dynamics_models", "3", "--num_elite_models", "2")
+    graphed = _tiny_controller(tmp_path / "graphed", *flags)
+    graphed.learn()
+    assert {key[0] for key in graphed.graphs.graphs} >= set(FIT_GRAPHS)
+    eager = _tiny_controller(tmp_path / "eager", *flags, "--no_fuse_fit")
+    C.load_controller_state(eager, C.to_host(C.controller_state(graphed)))
+    yield graphed, eager
+    graphed.logger.finish()
+    eager.logger.finish()
+
+
+def test_graphed_fit_equals_the_eager_fit(fitted):
+    """The same retrain replayed from the graphs and run eagerly: parameters,
+    Adam moments and counts, global steps, val losses, steps, epochs and
+    the generator after it, all exactly equal."""
+    graphed, eager = fitted
+    captured = len(graphed.graphs.graphs)
+    logs = {}
+    for name, ctl in (("graphed", graphed), ("eager", eager)):
+        ctl.update_delta_transform()
+        logs[name] = ctl.update_surrogates()
+        torch.cuda.synchronize()
+    assert len(graphed.graphs.graphs) == captured and not eager.graphs.graphs
+    assert "t_fit_ready" in logs["graphed"] and "t_fit_val" in logs["eager"]
+    for k in ("val_loss", "train_loss", "elite_scores", "steps", "epochs", "lr"):
+        assert logs["graphed"][k] == logs["eager"][k], k
+    a, b = _fit_state(graphed), _fit_state(eager)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert int(a["count"].min()) > 0
+    assert torch.equal(graphed.gen.get_state(), eager.gen.get_state())
+    for p, q in zip(graphed.ensemble.members.parameters(), eager.ensemble.members.parameters()):
+        assert torch.equal(p, q)
+
+
+def test_fit_capture_leaves_the_state_and_the_generator(dev, tmp_path):
+    """Each of the fit's captures (its step and its validation step, at the
+    first retrain) launches nothing: the stacked state and the generator
+    are as they were before it."""
+    ctl = _tiny_controller(tmp_path / "run", "--checkpoint_freq", "0",
+                           "--total_timesteps", "10")
+    real, seen = ctl.graphs.capture, []
+
+    def spy(key, body, state):
+        torch.cuda.synchronize()
+        before = ({k: v.clone() for k, v in _fit_state(ctl).items()}, ctl.gen.get_state())
+        graph = real(key, body, state)
+        torch.cuda.synchronize()
+        # Copies: the later replays write the live tensors.
+        after = {k: v.clone() for k, v in _fit_state(ctl).items()}
+        seen.append((key, before, (after, ctl.gen.get_state())))
+        return graph
+
+    ctl.graphs.capture = spy
+    try:
+        ctl.learn()
+    finally:
+        ctl.logger.finish()
+    assert {key[0] for key, _, _ in seen} >= set(FIT_GRAPHS)
+    for key, (state, gen), (state_after, gen_after) in seen:
+        if key[0] in FIT_GRAPHS:
+            assert torch.equal(gen, gen_after), key
+            for k in state:
+                assert torch.equal(state[k], state_after[k]), (key, k)
+
+
+def test_fit_replay_after_a_rebound_parameter_raises(fitted):
+    """A graph reads the parameters at their addresses: a member whose
+    parameter was rebound to a new tensor makes the next replay raise."""
+    graphed, _ = fitted
+    cell = graphed.ensemble.members[1].cell
+    cell.wx.weight = torch.nn.Parameter(cell.wx.weight.detach().clone())
+    with pytest.raises(RuntimeError, match="replaying the surrogate fit's fit_step"):
+        graphed.update_surrogates()
 
 
 # --------------------------------------- the families and Burgers on the card

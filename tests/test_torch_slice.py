@@ -218,18 +218,52 @@ def test_unported_flags_raise(flags, tmp_path):
         script.main(SMOKE_ARGS + ["--run_dir", str(tmp_path)] + flags)
 
 
-def test_fusion_flags_are_accepted(tmp_path):
+# The fields of a retrain record on each fit route: the JAX package's
+# (``pdecontrol_tpu/mbrl/controller.py:543-636``, ``train/trainer.py``), and
+# ``t_fit_total`` on every route.
+FIT_COMMON = {"t_fit_total", "steps", "epochs", "curriculum_K", "lr", "train_loss",
+              "val_loss", "elite_scores", "t_split", "t_post"}
+FIT_ROUTE_FIELDS = {
+    "lockstep": FIT_COMMON | {"t_fit_prep", "t_fit_dispatch", "t_fit_ready"},
+    "lockstep_eager": FIT_COMMON | {"t_fit_prep", "t_fit_dispatch", "t_fit_val"},
+    "sequential": FIT_COMMON | {"val_delta_loss", "t_fit_train", "t_fit_val"},
+}
+
+
+@pytest.mark.parametrize("flags, iteration_route, fit_route", [
+    ([], "fused", "lockstep"),
+    (["--no_fuse_iteration"], "eager", "lockstep"),
+    (["--no_fuse_fit"], "fused", "lockstep_eager"),
+    (["--sequential_member_training"], "fused", "sequential"),
+    (["--no_fuse_iteration", "--no_fuse_fit", "--sequential_member_training"], "eager",
+     "sequential"),
+], ids=["default", "no_fuse_iteration", "no_fuse_fit", "sequential", "all_three"])
+def test_fusion_flags_are_accepted(tmp_path, flags, iteration_route, fit_route):
     """``--no_fuse_iteration`` selects the eager phases, each timed after a
-    device synchronisation; ``--no_fuse_fit`` and
-    ``--sequential_member_training`` are accepted and change nothing yet."""
-    flags = ["--no_fuse_iteration", "--no_fuse_fit", "--sequential_member_training"]
+    device synchronisation; ``--no_fuse_fit`` the lock-step fit run eagerly
+    (on the CPU the default runs it eagerly too, but names its pull
+    ``t_fit_ready`` as the JAX package's default route does), and
+    ``--sequential_member_training`` one fit per member, whose record is
+    the last member's.  Each retrain record carries its route's fields."""
     cfg = script.config_from_args(script.build_parser().parse_args(flags))
-    assert not cfg.fuse_iteration and not cfg.fuse_fit and not cfg.vmap_ensemble_training
+    assert cfg.fuse_iteration == ("--no_fuse_iteration" not in flags)
+    assert cfg.fuse_fit == ("--no_fuse_fit" not in flags)
+    assert cfg.vmap_ensemble_training == ("--sequential_member_training" not in flags)
     run_dir = str(tmp_path / "run")
     assert script.main(SMOKE_ARGS + ["--run_dir", run_dir, "--logging_freq", "0",
                                      "--total_timesteps", "16"] + flags) == 0
     records = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
     assert [r["iteration"] for r in records] == list(range(4))
-    for r in records:
-        assert {"t_collect", "t_imagine", "t_policy", "t_pull"} <= set(r), r
-        assert not {"t_dispatch", "t_ready", "t_fused"} & set(r), r
+    for r in records[1:]:
+        if iteration_route == "eager":
+            assert {"t_collect", "t_imagine", "t_policy", "t_pull"} <= set(r), r
+            assert not {"t_dispatch", "t_ready", "t_fused"} & set(r), r
+        else:
+            assert {"t_dispatch", "t_ready"} <= set(r) and "t_collect" not in r, r
+    retrain = records[0]
+    want = FIT_ROUTE_FIELDS[fit_route]
+    assert want <= set(retrain), sorted(want - set(retrain))
+    other = set().union(*FIT_ROUTE_FIELDS.values()) - want
+    assert not other & set(retrain), sorted(other & set(retrain))
+    assert len(retrain["elite_scores"]) == 2
+    assert all(math.isfinite(retrain[k]) for k in ("train_loss", "val_loss"))
