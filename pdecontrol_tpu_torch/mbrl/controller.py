@@ -43,9 +43,20 @@ A resumed run repeats neither the random warmup nor the initial policy
 evaluation (the JAX package repeats both, ``controller.py:1255-1266``): its
 replay, generator and counters are the snapshot's, so it goes on exactly as
 the uninterrupted run would have; only the wall-clock fields restart.
-The JAX package's precompile ladder, the device mesh and wandb (logging,
-image and artifact uploads) are not ported; the options that ask for a mesh
-or for wandb raise.
+The JAX package's precompile ladder and wandb (logging, image and artifact
+uploads) are not ported; the option that asks for wandb raises.
+
+A ``data_parallel x model_parallel`` mesh larger than 1x1 is one process per
+rank (``parallel/``): each rank steps its share of the envs and of the
+imagined batch and takes its share of every SAC batch (``data``), and fits
+its share of the members (``model``).  Every draw is made at its global
+size from a generator seeded alike on every rank, and what the ranks share
+(the replays, the scalings, the networks, the members, the records) is
+gathered so that it is equal on every rank and equals the one-process run
+but for rounding.  Evaluation and the delta refit run on every rank alike.
+Only the primary rank writes files.  Under a mesh the phases and the fit
+run eagerly: gloo's collectives run on the host and cannot be captured in a
+CUDA graph.
 """
 
 from __future__ import annotations
@@ -73,6 +84,9 @@ from pdecontrol_tpu_torch.models.surrogate import (
     init_ensemble,
     update_elites,
 )
+from pdecontrol_tpu_torch.parallel import distributed
+from pdecontrol_tpu_torch.parallel import mesh as meshlib
+from pdecontrol_tpu_torch.parallel.sharded import sharded_vec_step
 from pdecontrol_tpu_torch.sac.sac import SAC, SACConfig
 from pdecontrol_tpu_torch.train.losses import make_loss
 from pdecontrol_tpu_torch.train.schedulers import Scheduler
@@ -108,16 +122,29 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
 
 
 def check_ported(cfg: MBPOConfig) -> None:
-    """Raise for every option that names a feature the port lacks: a device
-    mesh and wandb.  An env, factory or loss name that no registry holds is
-    a ``KeyError`` where it is looked up, as in the JAX package."""
-    todo = []
-    if cfg.data_parallel * cfg.model_parallel > 1:
-        todo.append(f"a {cfg.data_parallel}x{cfg.model_parallel} device mesh")
+    """Raise for the option that names a feature the port lacks: wandb.  An
+    env, factory or loss name that no registry holds is a ``KeyError``
+    where it is looked up, as in the JAX package."""
     if cfg.use_wandb:
-        todo.append("wandb logging")
-    if todo:
-        raise NotImplementedError("not yet ported: " + "; ".join(todo))
+        raise NotImplementedError("not yet ported: wandb logging")
+
+
+def mesh_for(cfg: MBPOConfig) -> Optional[meshlib.Mesh]:
+    """The config's device mesh, or None for 1x1 (the single-device path,
+    untouched).  The batches must split over their axes (the JAX package's
+    checks and messages, ``mbrl/controller.py:87-116``), and the process
+    must be one rank of a process group of the mesh's size."""
+    if cfg.data_parallel * cfg.model_parallel == 1:
+        return None
+    for name, val, axis in (
+        ("num_envs", cfg.num_envs, cfg.data_parallel),
+        ("model_rollouts_batch_size", cfg.model_rollouts_batch_size, cfg.data_parallel),
+        ("policy_batch_size", cfg.policy_batch_size, cfg.data_parallel),
+        ("num_dynamics_models", cfg.num_dynamics_models, cfg.model_parallel),
+    ):
+        if val % axis != 0:
+            raise ValueError(f"{name}={val} not divisible by its mesh axis size {axis}")
+    return meshlib.make_mesh(cfg.data_parallel, cfg.model_parallel)
 
 
 class PDEModelBasedController:
@@ -125,15 +152,32 @@ class PDEModelBasedController:
                  device: Optional[torch.device] = None, debug_nans: bool = False):
         check_ported(config)
         self.config = cfg = config
+        self.mesh = mesh_for(cfg)
+        # File I/O is the primary rank's.
+        self.primary = distributed.is_primary()
         self.device = dev = entry_device(device)
         # --debug_nans: finiteness checks at the phase boundaries.
         self.finite = profiling.FiniteChecks() if debug_nans else None
-        # The fused iteration and the graphed fit cannot stop to check.
-        self.fused = cfg.fuse_iteration and not debug_nans
+        # The fused iteration and the graphed fit cannot stop to check, and
+        # cannot hold a collective of the mesh.
+        graphed = not debug_nans and self.mesh is None
+        self.fused = cfg.fuse_iteration and graphed
         if cfg.fuse_iteration and debug_nans:
             print("[fuse] --debug_nans runs the eager phases", flush=True)
         if cfg.fuse_fit and cfg.vmap_ensemble_training and debug_nans:
             print("[fuse] --debug_nans runs the eager fit", flush=True)
+        # This rank's envs.
+        self.env_rows = (slice(None) if self.mesh is None
+                         else self.mesh.data_slice(cfg.num_envs))
+        if self.mesh is not None:
+            m = self.mesh
+            members = m.model_slice(cfg.num_dynamics_models)
+            print(f"[mesh] {m.data_parallel}x{m.model_parallel}, rank {m.rank} (data "
+                  f"{m.data_index}, model {m.model_index}) on {dev}: envs "
+                  f"{self.env_rows.start}:{self.env_rows.stop} of {cfg.num_envs}, members "
+                  f"{members.start}:{members.stop} of {cfg.num_dynamics_models}; the eager "
+                  f"phases and the eager fit run (no CUDA graph holds the mesh's "
+                  f"collectives: gloo's run on the host)", flush=True)
         torch.manual_seed(cfg.seed)  # module initialisation
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
@@ -200,6 +244,7 @@ class PDEModelBasedController:
         }
         self.trainer = SurrogateTrainer(self.loss_fn, self.train_cfgs["initial"],
                                         check=self.finite)
+        self.trainer.mesh = self.mesh
         self.fit_state = self.trainer.init_members(self.ensemble.members,
                                                    self.ensemble.params)
 
@@ -231,25 +276,29 @@ class PDEModelBasedController:
         )
         self.sac = SAC(self.agent_obs_shape, self.env.action_shape, sac_cfg,
                        self.env.action_low, self.env.action_high, device=dev,
-                       check=self.finite)
+                       check=self.finite, mesh=self.mesh)
         self.sac_state = self.sac.init()
         self.random_agent = RandomAgent(self.env.action_shape, self.env.action_low,
                                         self.env.action_high)
 
         self.world = WorldModel(cfg.model_rollouts_batch_size,
                                 self.env.max_episode_steps, self.env.reward_fn,
-                                self.tau)
+                                self.tau, mesh=self.mesh)
 
         # Collect env state; the initial reset updates the running obs
-        # scaling (vec_wrappers.py:181-184).
+        # scaling (vec_wrappers.py:181-184).  A rank keeps its envs.
         self.env_state = self.env.reset_from_pool(self.gen, self.pool, (cfg.num_envs,))
         self.tr = self.tr.replace(
             oscaling=self.tr.oscaling.update(self.env.observe(self.env_state))
         )
+        if self.mesh is not None:
+            self.env_state = self.env_state.replace(
+                u=self.env_state.u[self.env_rows].clone(),
+                step=self.env_state.step[self.env_rows].clone())
 
         # Plot renders and npz writes run on one background thread, drained
         # at the end of learn().
-        self.viz = BackgroundRenderer()
+        self.viz = BackgroundRenderer(enabled=self.primary)
         self.last_trace: Dict = {}  # --profile_dir's trace: path, wall_s, export_s
         self._start_time = time.time()
         self.throughput = profiling.Throughput()
@@ -258,8 +307,8 @@ class PDEModelBasedController:
         # its pull, and whether an iteration ran eagerly in this process
         # (which a capture needs first: it loads every kernel and sets up
         # every library handle and optimizer state the body touches).
-        self.graphs = GraphCache([self.gen]) if dev.type == "cuda" else None
-        self.trainer.fuse_fit = cfg.fuse_fit and not debug_nans
+        self.graphs = GraphCache([self.gen]) if dev.type == "cuda" and graphed else None
+        self.trainer.fuse_fit = cfg.fuse_fit and graphed
         self.trainer.graphs = self.graphs if self.trainer.fuse_fit else None
         self._capture_log: Dict[str, float] = {}
         self._pending_log = None
@@ -270,6 +319,8 @@ class PDEModelBasedController:
         self.restored = False
         if cfg.checkpoint_freq or cfg.resume:
             self.ckpt = C.CheckpointManager(os.path.join(cfg.run_dir, "checkpoints"))
+            if self.mesh is not None:
+                self.mesh.barrier()  # every rank reads the same snapshot
             if cfg.resume and self.ckpt.latest_step() is not None:
                 C.load_controller_state(self, self.ckpt.restore(map_location=dev))
                 self.restored = True
@@ -281,7 +332,7 @@ class PDEModelBasedController:
         # appending a restarted run onto it.
         self.logger = logger or MetricsLogger(config.run_dir, False, config.project,
                                               config.name, config.to_dict(),
-                                              append=self.restored)
+                                              append=self.restored, enabled=self.primary)
 
     # ------------------------------------------------------------- plumbing
     def _sync(self) -> None:
@@ -322,22 +373,35 @@ class PDEModelBasedController:
         return self.iteration * self.samples_per_iteration
 
     # ------------------------------------------------------------ collection
+    def _data(self, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Per-env tensors of the whole batch: under a mesh, this rank's rows
+        gathered over ``data``; else the tensors themselves."""
+        if self.mesh is None:
+            return tensors
+        return tuple(self.mesh.gather(tensors, meshlib.DATA_AXIS))
+
     @torch.no_grad()
     def collect(self, nsteps: int, random: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (per-step rewards [nsteps, B], their mean); the env state
-        and the obs scaling are updated in place."""
+        and the obs scaling are updated in place.  Under a mesh a rank steps
+        its envs, and the actions, the replay writes and the scaling see the
+        whole batch."""
         env, tr, state = self.env, self.tr, self.env_state
         rewards = []
+        (raw_obs,) = self._data(env.observe(state))
         for _ in range(nsteps):
-            raw_obs = env.observe(state)
             if random:
                 action = self.random_agent.select_action(None, raw_obs, self.gen)
             else:
                 action = self.sac.select_action(
                     self.sac_state, tr.raw_to_agent_obs(raw_obs), self.gen)
             env_action = tr.agent_to_env_action(action)
-            state, out = env.vec_step(state, env_action, self.pool)
+            if self.mesh is None:
+                state, out = env.vec_step(state, env_action, self.pool)
+            else:
+                state, out = sharded_vec_step(self.mesh, env, state,
+                                              env_action[self.env_rows], self.pool)
             if self.finite is not None:
                 self.finite("collect (env step)", field=out.info["final_obs"],
                             reward=out.reward)
@@ -350,6 +414,7 @@ class PDEModelBasedController:
                          out.terminated, out.truncated, out.info["final_obs"],
                          out.info["step"])
             rewards.append(out.reward)
+            raw_obs = out.obs
         copy_into(self.env_state, state)
         copy_into(self.tr.oscaling, tr.oscaling)
         rewards = torch.stack(rewards)
@@ -497,21 +562,27 @@ class PDEModelBasedController:
         """Imagined rollouts in batches of ``model_rollouts_batch_size`` from
         replay starting states; returns (rewards [rounds*horizon, B], mean).
         Each round starts from a reset, so the state after its last step is
-        not needed and the world step draws no reset there."""
+        not needed and the world step draws no reset there.  Under a mesh a
+        rank rolls out its share of the batch, and the actions and the
+        replay writes see the whole batch."""
         tr, world, ens = self.tr, self.world, self.ensemble
+        rows = slice(None) if world.rows is None else world.rows
         rewards = []
         for _ in range(self.world_rounds):
             wstate = world.reset(self.gen, ens, self.replay, tr)
+            obs, t = self._data(wstate.obs, wstate.timesteps)
             for k in range(horizon):
-                prev_obs, prev_t = wstate.obs, wstate.timesteps
+                prev_obs, prev_t = obs, t
                 action = self.sac.select_action(
                     self.sac_state, tr.world_to_agent_obs(prev_obs), self.gen)
                 wstate, (_, reward, term, trunc, final_obs) = world.step(
-                    self.gen, wstate, ens, action, tr, horizon, self.replay,
+                    self.gen, wstate, ens, action[rows], tr, horizon, self.replay,
                     reset=k < horizon - 1)
                 if self.finite is not None:
                     self.finite("imagine (world-model step)", obs=final_obs,
                                 reward=reward)
+                obs, t, reward, term, trunc, final_obs = self._data(
+                    wstate.obs, wstate.timesteps, reward, term, trunc, final_obs)
                 R.write_step(self.world_replay, prev_obs, action, reward, term,
                              trunc, final_obs, prev_t + 1)
                 rewards.append(reward)
@@ -536,6 +607,8 @@ class PDEModelBasedController:
                 return torch.where(pick.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
 
             batch = Sample(*(sel(a, b) for a, b in zip(imag, real)))
+            if self.mesh is not None:  # this rank's share
+                batch = batch.apply(lambda x: x[self.mesh.data_slice(bs)])
             return batch.replace(
                 obs=batch.obs.float(), actions=batch.actions.float(),
                 nxtobs=batch.nxtobs.float(), rewards=batch.rewards.float(),
@@ -735,9 +808,9 @@ class PDEModelBasedController:
 
         saved_at = self.iteration if self.restored else None
         while self.num_steps_sampled < cfg.total_timesteps - cfg.learning_starts:
-            # A profiler trace of one representative iteration; a graph it
-            # replays is captured before the trace starts.
-            traced = bool(cfg.profile_dir) and self.iteration == 1
+            # A profiler trace of one representative iteration (the primary
+            # rank's); a graph it replays is captured before the trace starts.
+            traced = bool(cfg.profile_dir) and self.iteration == 1 and self.primary
             if traced:
                 self._prepare_graph()
             with (profiling.trace(cfg.profile_dir) if traced
@@ -748,7 +821,7 @@ class PDEModelBasedController:
                 print(f"[profile] trace of iteration 1 ({trace['wall_s']:.2f} s) written "
                       f"to {trace['path']} (export {trace['export_s']:.1f} s)", flush=True)
 
-            if self.iteration % cfg.status_report_freq == 0:
+            if self.primary and self.iteration % cfg.status_report_freq == 0:
                 print(self.logger.table(STATUS_HEADERS), flush=True)
 
             if self.ckpt is not None and cfg.checkpoint_freq and (
@@ -764,14 +837,22 @@ class PDEModelBasedController:
         if self.ckpt is not None:
             self.ckpt.wait()  # the files must be on disk before exit
         self.viz.drain()  # and so must the plots and artifacts
+        if self.mesh is not None:
+            self.mesh.barrier()  # on every rank's return, the primary's files are written
 
     def save_checkpoint(self) -> None:
         """Snapshot the training state at ``self.iteration``; returns once the
         state is copied to host memory (the file is written behind it).  The
-        record still awaiting its pull is committed first."""
+        record still awaiting its pull is committed first.  Under a mesh
+        every rank takes part in gathering the envs, and the primary
+        writes."""
         self._flush_pending_log()
         self._sync()
-        self.ckpt.save(self.iteration, C.controller_state(self))
+        state = C.controller_state(self)
+        if self.mesh is not None:
+            state = C.replicate_for_snapshot(state, self.mesh)
+        if self.primary:
+            self.ckpt.save(self.iteration, state)
 
     # ---------------------------------------------------- the fused iteration
     def _fused_key(self) -> Optional[Tuple[int, int, int, int]]:

@@ -42,8 +42,27 @@ finiteness checks at the phase boundaries (each waits for the device), and
 so runs the eager phases.  ``--factory`` takes each of the five families,
 ``--env_id`` the KS and the Burgers env (which
 takes no ``--solver``), ``--loss`` ``MSELoss``, ``KSPhyPDELoss``,
-``BurgersPhyPDELoss`` or ``PhyPDELoss``.  Flags for features not ported
-(``--wandb``, a device mesh, the multi-process runtime) raise.
+``BurgersPhyPDELoss`` or ``PhyPDELoss``.  ``--wandb``, which is not ported,
+raises.
+
+A device mesh (``--data_parallel D --model_parallel M``) runs as D x M
+processes, one per rank, each started with the same arguments and
+``--coordinator_address host:port --num_processes D*M --process_id i``
+(rank 0 listens at the address; ``file:///path`` names a rendezvous file
+instead).  Rank ``i`` runs on card ``i`` modulo the cards present, or on
+the CPU under ``--platform cpu``; the ranks meet through NCCL when each has
+a card of its own and through gloo otherwise.  Only rank 0 writes files,
+and each rank prints one ``[rank]`` line at the end with its kernels'
+launches and rows and its peak device memory.  ``runscripts/mbpo_ks_mesh.sh``'s
+arguments at ``DATA_PARALLEL=2 MODEL_PARALLEL=2`` on one card:
+
+    for i in 0 1 2 3; do
+      python -m pdecontrol_tpu_torch.mbrl.script --solver pallas \
+          --data_parallel 2 --model_parallel 2 --num_envs 20 \
+          --num_dynamics_models 6 --num_elite_models 6 \
+          --model_rollouts_batch_size 200 --policy_batch_size 512 ... \
+          --coordinator_address localhost:29500 --num_processes 4 --process_id $i &
+    done; wait
 """
 
 from __future__ import annotations
@@ -95,13 +114,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     # Device mesh
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="mesh size sharding env/training batches (> 1 not yet ported)")
+                   help="mesh size sharding env/training batches")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="mesh size sharding ensemble members (> 1 not yet ported)")
+                   help="mesh size sharding ensemble members")
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="multi-process runtime (not yet ported)")
-    p.add_argument("--num_processes", type=int, default=1)
-    p.add_argument("--process_id", type=int, default=0)
+                   help="host:port of rank 0 (or a file:// rendezvous) of a mesh's "
+                        "processes")
+    p.add_argument("--num_processes", type=int, default=1,
+                   help="processes of the mesh: data_parallel x model_parallel")
+    p.add_argument("--process_id", type=int, default=0, help="this process's rank")
     # Env & rollouts
     p.add_argument("--env_id", default="KuramotoSivashinskyEnv-v0")
     p.add_argument("--env_config", type=str, default="{}")
@@ -225,30 +246,60 @@ def config_from_args(args: argparse.Namespace) -> MBPOConfig:
     return cfg.merged_with_factory_defaults(factory.defaults if factory else {})
 
 
+def rank_report(ctl) -> str:
+    """One rank's line: its place, device and backend, its kernels'
+    launches and rows, and its peak device memory."""
+    import torch
+    import torch.distributed as dist
+
+    from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed
+
+    dev = ctl.device
+    return "[rank] " + json.dumps({
+        "rank": dist.get_rank(), "device": str(dev), "backend": dist.get_backend(),
+        "env_rows": [ctl.env_rows.start, ctl.env_rows.stop],
+        "K1": pallas_ks.launch_count, "K1_rows": pallas_ks.rows_launched,
+        "K2": pallas_ks_packed.launch_count, "K2_rows": pallas_ks_packed.rows_launched,
+        "peak_allocated_mb": (round(torch.cuda.max_memory_allocated(dev) / 1e6, 1)
+                              if dev.type == "cuda" else None),
+    })
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.coordinator_address:
-        raise NotImplementedError(
-            "not yet ported: the multi-process runtime (--coordinator_address)")
     config = config_from_args(args)
+    device = platform_device(args.platform)
+    ranks = config.data_parallel * config.model_parallel
+    if args.coordinator_address and args.num_processes != ranks:
+        raise ValueError(f"--num_processes {args.num_processes} is not the "
+                         f"{config.data_parallel}x{config.model_parallel} mesh's {ranks} ranks")
 
     import torch
 
     from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController
+    from pdecontrol_tpu_torch.parallel import distributed
 
-    mbpo = PDEModelBasedController(config, device=platform_device(args.platform),
-                                   debug_nans=args.debug_nans)
-    anomaly = torch.is_anomaly_enabled()
-    torch.autograd.set_detect_anomaly(anomaly or args.debug_nans)
+    if args.coordinator_address:
+        # Before the controller, whose mesh is made of the process group.
+        device = distributed.initialize(args.coordinator_address, args.num_processes,
+                                        args.process_id, args.platform)
     try:
-        mbpo.learn()
-    except Exception:
-        print(traceback.format_exc(), file=sys.stderr)
-        return 1
+        mbpo = PDEModelBasedController(config, device=device, debug_nans=args.debug_nans)
+        anomaly = torch.is_anomaly_enabled()
+        torch.autograd.set_detect_anomaly(anomaly or args.debug_nans)
+        try:
+            mbpo.learn()
+        except Exception:
+            print(traceback.format_exc(), file=sys.stderr)
+            return 1
+        finally:
+            torch.autograd.set_detect_anomaly(anomaly)
+            mbpo.logger.finish()
+        if distributed.is_initialized():
+            print(rank_report(mbpo), flush=True)
+        return 0
     finally:
-        torch.autograd.set_detect_anomaly(anomaly)
-        mbpo.logger.finish()
-    return 0
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

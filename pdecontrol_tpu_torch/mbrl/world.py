@@ -18,6 +18,11 @@ Reference semantics kept:
 The auto-reset takes the JAX package's form (``pdecontrol_tpu/mbrl/world.py``
 ``step``): a fresh state is drawn at every step and picked on the device, so
 no value goes to the host and the step runs inside a CUDA graph.
+
+With a ``mesh`` (``parallel/mesh.py``) the batch is sharded over ``data``:
+``reset`` and ``step`` hold this rank's rows, every draw is made for the
+whole batch and the rank keeps its rows, and the batch is done when it is
+done on every rank.
 """
 
 from __future__ import annotations
@@ -57,28 +62,36 @@ def _pick(cond: torch.Tensor, a: WorldState, b: WorldState) -> WorldState:
 class WorldModel:
     """Static config of the imagined env; its state is explicit."""
 
-    def __init__(self, num_envs: int, max_episode_steps: int, reward_fn, tau: int):
+    def __init__(self, num_envs: int, max_episode_steps: int, reward_fn, tau: int,
+                 mesh=None):
         self.num_envs = num_envs
         self.max_episode_steps = max_episode_steps
         self.reward_fn = reward_fn
         self.tau = tau
+        self.mesh = mesh
+        # This rank's rows of the batch.
+        self.rows = None if mesh is None else mesh.data_slice(num_envs)
 
     @torch.no_grad()
     def reset(self, generator: Optional[torch.Generator], ens: EnsembleState,
               replay: R.ReplayState, tr: ControllerTransforms) -> WorldState:
         batch = R.sample_starting(replay, generator, self.num_envs, self.tau)
-        return self.reset_from_batch(generator, ens, tr.replay_to_world(batch), tr)
+        if self.rows is not None:
+            batch = batch.apply(lambda x: x[self.rows])
+        return self.reset_from_batch(generator, ens, tr.replay_to_world(batch), tr,
+                                     rows=self.rows)
 
     @torch.no_grad()
     def reset_from_batch(self, generator: Optional[torch.Generator],
-                         ens: EnsembleState, batch, tr: ControllerTransforms
-                         ) -> WorldState:
+                         ens: EnsembleState, batch, tr: ControllerTransforms,
+                         rows: Optional[slice] = None) -> WorldState:
         """Teacher-force every member over an explicit world-space warmup
         window and return the elite-selected last prediction
-        (world.py:176-204)."""
+        (world.py:176-204).  ``rows``: the batch is those rows of the
+        ``num_envs`` (``select_elites``)."""
         roll = ensemble_rollout(ens, batch.obs, batch.actions,
                                 dscaling=tr.undscaling.inv)
-        selected, _ = select_elites(generator, ens, roll.outputs[:, :, -1])
+        selected, _ = self._select(generator, ens, roll.outputs[:, :, -1], rows)
         return WorldState(
             obs=selected,
             hidden=roll.hidden,
@@ -88,14 +101,15 @@ class WorldModel:
 
     @torch.no_grad()
     def advance(self, generator: Optional[torch.Generator], state: WorldState,
-                ens: EnsembleState, waction: torch.Tensor, tr: ControllerTransforms
-                ) -> Tuple[WorldState, torch.Tensor]:
+                ens: EnsembleState, waction: torch.Tensor, tr: ControllerTransforms,
+                rows: Optional[slice] = None) -> Tuple[WorldState, torch.Tensor]:
         """One imagined step without truncation: advance every member one
         control period on the previous *selected* outputs, elite-select, and
-        score the physical-space reward (world.py:147-174)."""
+        score the physical-space reward (world.py:147-174).  ``rows`` as in
+        ``reset_from_batch``."""
         roll = ensemble_rollout(ens, state.obs[:, None], waction[:, None],
                                 dscaling=tr.undscaling.inv, hidden=state.hidden)
-        selected, _ = select_elites(generator, ens, roll.outputs[:, :, -1])
+        selected, _ = self._select(generator, ens, roll.outputs[:, :, -1], rows)
         phys_obs = tr.world_to_raw_obs(selected)
         phys_phi = tr.world_action_to_phys_field(waction)
         reward = self.reward_fn(phys_obs, phys_phi)
@@ -107,6 +121,10 @@ class WorldModel:
         )
         return stepped, reward
 
+    def _select(self, generator, ens, outputs, rows):
+        total = None if rows is None else self.num_envs
+        return select_elites(generator, ens, outputs, rows=rows, total=total)
+
     @torch.no_grad()
     def step(self, generator: Optional[torch.Generator], state: WorldState,
              ens: EnsembleState, agent_action: torch.Tensor,
@@ -117,13 +135,16 @@ class WorldModel:
         (what the imagined replay stores).  The fresh state is drawn whether
         or not the batch is done, as in the JAX package; ``reset=False``
         skips it at a step whose returned state the caller discards (the
-        last step of an imagined round), which changes nothing it stores."""
+        last step of an imagined round), which changes nothing it stores.
+        With a mesh, ``state``, ``agent_action`` and what is returned hold
+        this rank's rows."""
         env_action = tr.agent_to_env_action(agent_action)
         waction = tr.env_action_to_world(env_action)  # [B, C, H] field
-        stepped, reward = self.advance(generator, state, ens, waction, tr)
+        stepped, reward = self.advance(generator, state, ens, waction, tr, rows=self.rows)
 
         env_limit = stepped.timesteps >= self.max_episode_steps
-        all_done = torch.all(env_limit | (stepped.simulated >= horizon))
+        done = env_limit | (stepped.simulated >= horizon)
+        all_done = torch.all(done) if self.mesh is None else self.mesh.all(done)
         truncated = torch.broadcast_to(all_done, env_limit.shape)
         terminated = torch.zeros_like(env_limit)
         state = stepped

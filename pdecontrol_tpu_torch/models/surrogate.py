@@ -314,13 +314,20 @@ def ensemble_rollout(
 
 
 def select_elites(
-    generator: Optional[torch.Generator], ens: EnsembleState, outputs: torch.Tensor
+    generator: Optional[torch.Generator], ens: EnsembleState, outputs: torch.Tensor,
+    rows: Optional[slice] = None, total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A random elite member per batch element (surrogate.py:44-46).
-    ``outputs`` [M, B, ...] -> gathered [B, ...] plus the member indices."""
+    ``outputs`` [M, B, ...] -> gathered [B, ...] plus the member indices.
+    ``outputs`` may hold the ``rows`` of a batch of ``total`` (a rank's
+    share): the members are then drawn for the whole batch, and the rows'
+    kept."""
     b = outputs.shape[1]
-    members = torch.multinomial(ens.elite_mask.to(torch.float32), b,
+    members = torch.multinomial(ens.elite_mask.to(torch.float32),
+                                b if total is None else total,
                                 replacement=True, generator=generator)
+    if rows is not None:
+        members = members[rows]
     return outputs[members, torch.arange(b, device=outputs.device)], members
 
 

@@ -13,8 +13,9 @@ period and returns ``(u_next [B, N], reward [B])``, as
     ``[u | u^2] @ W`` form with the block-diagonal ``fused_stencil_matrix``).
 
 ``launch_count`` counts the kernel's launches, so that a run can show it
-went through the kernel.  A launch inside a CUDA graph's capture runs
-nothing: ``utils/graphs.py`` takes it back out and adds it on every replay.
+went through the kernel, and ``rows_launched`` the rows they stepped.  A
+launch inside a CUDA graph's capture runs nothing: ``utils/graphs.py``
+takes it back out and adds it on every replay.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ SOURCE = "ks_control_period.cu"
 
 #: Launches of the CUDA kernel since import (or since a caller reset it).
 launch_count = 0
+#: Rows (envs) those launches stepped.
+rows_launched = 0
 
 
 @functools.lru_cache(maxsize=16)
@@ -135,7 +138,7 @@ def ks_control_period(
     """One KS control period of a batch ``u`` [B, N] under forcing ``phi``
     (broadcast to ``u``): the CUDA kernel for GPU tensors, the plain version
     for CPU tensors."""
-    global launch_count
+    global launch_count, rows_launched
     if u.ndim != 2:
         raise ValueError(f"expected batched [B, N] state, got {tuple(u.shape)}")
     if objective not in (L2CONTROL, DISSIPATION):
@@ -170,4 +173,5 @@ def ks_control_period(
     if err != 0:
         raise RuntimeError(f"ks_control_period kernel launch failed: CUDA error {err}")
     launch_count += 1
+    rows_launched += b
     return u_out, rew

@@ -35,7 +35,8 @@ held bit-equal to the JAX ones.
 a float32 batch on the GPU (built at first use, one launch per period) or
 raises, and runs ``ks_control_period_packed_plain`` for one on the CPU.
 ``launch_count`` counts the kernel's launches (a CUDA graph's replays
-included, see ``utils/graphs.py``).
+included, see ``utils/graphs.py``), and ``rows_launched`` the rows they
+stepped.
 """
 
 from __future__ import annotations
@@ -57,6 +58,8 @@ LIMB_PASSES = {"bf16": 1, "bf16_3x": 3, "bf16_4x": 4}
 
 #: Launches of the CUDA kernel since import (or since a caller reset it).
 launch_count = 0
+#: Rows (envs) those launches stepped.
+rows_launched = 0
 
 
 def _operator_f64(ops: KSOperators) -> Tuple[np.ndarray, np.ndarray]:
@@ -250,7 +253,7 @@ def ks_control_period_packed(
     ``phi`` (broadcast to ``u``) at ``precision``: ``highest`` is K1; a
     limb mode is the CUDA kernel for GPU tensors and the plain version for
     CPU tensors."""
-    global launch_count
+    global launch_count, rows_launched
     if objective not in (L2CONTROL, DISSIPATION):
         raise ValueError(f"unknown objective {objective!r}")
     if precision not in PRECISIONS:
@@ -291,4 +294,5 @@ def ks_control_period_packed(
         raise RuntimeError(
             f"ks_control_period_limb kernel launch failed: CUDA error {err}")
     launch_count += 1
+    rows_launched += b
     return u_out, rew

@@ -12,6 +12,13 @@ update every ``target_update_interval`` updates (sac.py:129-130).
 The networks and Adam states live in ``SACState``; ``update`` changes them
 in place and returns the state.  Random draws come from an explicit
 ``torch.Generator``, or are passed in as ``noise``.
+
+With a ``mesh`` (``parallel/mesh.py``) the agent is data parallel: the
+batch it is given is this rank's share of the batch, its policy noise is
+drawn for the whole batch and the rank keeps its rows, and each gradient is
+averaged over ``data`` before the optimizer step, so that the update on
+equal shares is the update on the whole batch and the networks stay equal
+on every rank.
 """
 
 from __future__ import annotations
@@ -22,7 +29,12 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from pdecontrol_tpu_torch.parallel.mesh import DATA_AXIS
 from pdecontrol_tpu_torch.sac.nets import GaussianPolicy, QNetwork
+
+# The metrics of an update that are means over its batch.
+BATCH_METRICS = ("qf_loss", "qf1_loss", "qf2_loss", "policy_loss", "alpha_loss",
+                 "reward_mean")
 
 
 class SACConfig(NamedTuple):
@@ -61,11 +73,14 @@ def _adam(params, lr: float) -> torch.optim.Adam:
                             capturable=params[0].device.type == "cuda")
 
 
-def _set_grads(params, loss: torch.Tensor) -> None:
+def _set_grads(params, loss: torch.Tensor, mesh=None) -> None:
     """Gradients of ``loss`` for ``params`` only (the other networks the
-    loss runs through get none)."""
+    loss runs through get none), averaged over ``mesh``'s data axis."""
     params = list(params)
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+    grads = torch.autograd.grad(loss, params)
+    if mesh is not None:
+        mesh.mean_(grads, DATA_AXIS)
+    for p, g in zip(params, grads):
         p.grad = g
 
 
@@ -74,10 +89,10 @@ class SAC:
 
     def __init__(self, obs_shape, action_shape, config: SACConfig = SACConfig(),
                  action_low: float = -1.0, action_high: float = 1.0, device=None,
-                 check: Optional[Callable] = None):
+                 check: Optional[Callable] = None, mesh=None):
         """``check``, if given, is called with every update's losses before
         their backward passes (``utils.profiling.FiniteChecks``, the
-        ``--debug_nans`` option)."""
+        ``--debug_nans`` option); ``mesh`` makes the updates data parallel."""
         self.obs_shape = tuple(obs_shape)
         self.action_shape = tuple(action_shape)
         self.config = config._replace(
@@ -88,6 +103,7 @@ class SAC:
         self.action_bias = (action_high + action_low) / 2.0
         self.device = device
         self.check = check
+        self.mesh = mesh
 
     # ------------------------------------------------------------------ init
     def init(self, dtype: torch.dtype = torch.float32) -> SACState:
@@ -137,11 +153,14 @@ class SAC:
     ) -> Tuple[SACState, Dict[str, torch.Tensor]]:
         """One SAC update on ``batch``.  ``noise`` = (next-state policy
         noise, current-state policy noise), each shaped like the action
-        batch; drawn from ``generator`` if not given."""
+        batch; drawn from ``generator`` if not given.  With a mesh the
+        metrics are this rank's (``global_metrics`` averages them)."""
         cfg = self.config
         obs, actions, nxtobs = batch.obs, batch.actions, batch.nxtobs
         rewards = batch.rewards.reshape(-1, 1) * cfg.reward_scale
         mask = 1.0 - batch.terminated.to(torch.float32).reshape(-1, 1)
+        if noise is None and self.mesh is not None:
+            noise = self._shard_noise(state, obs.shape[0], generator)
         noise_next, noise_pi = noise if noise is not None else (None, None)
         alpha = self._alpha(state)
 
@@ -160,7 +179,7 @@ class SAC:
         qf_loss = qf1_loss + qf2_loss
         if self.check is not None:
             self.check("the SAC update", qf_loss=qf_loss)
-        _set_grads(state.critic.parameters(), qf_loss)
+        _set_grads(state.critic.parameters(), qf_loss, self.mesh)
         state.critic_opt.step()
 
         # ---- policy step against the updated critic (sac.py:101-112)
@@ -169,7 +188,7 @@ class SAC:
         policy_loss = torch.mean(alpha * log_pi - torch.minimum(q1_pi, q2_pi))
         if self.check is not None:
             self.check("the SAC update", policy_loss=policy_loss)
-        _set_grads(state.policy.parameters(), policy_loss)
+        _set_grads(state.policy.parameters(), policy_loss, self.mesh)
         state.policy_opt.step()
 
         # ---- optional automatic entropy tuning (sac.py:114-123)
@@ -177,7 +196,7 @@ class SAC:
         if cfg.automatic_entropy_tuning:
             alpha_loss = -torch.mean(
                 state.log_alpha * (log_pi.detach() + cfg.target_entropy))
-            _set_grads([state.log_alpha], alpha_loss)
+            _set_grads([state.log_alpha], alpha_loss, self.mesh)
             state.alpha_opt.step()
 
         # ---- Polyak soft update every interval (sac.py:129-130).  The host
@@ -200,11 +219,32 @@ class SAC:
         }
         return state, metrics
 
+    def _shard_noise(self, state: SACState, rows: int,
+                     generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, ...]:
+        """This rank's rows of the two policy noises of the whole batch,
+        drawn in the order in which one process draws them."""
+        n = rows * self.mesh.data_parallel
+        p = next(state.policy.parameters())
+        return tuple(torch.randn((n,) + self.action_shape, generator=generator, dtype=p.dtype,
+                                 device=p.device)[self.mesh.data_slice(n)]
+                     for _ in range(2))
+
+    def global_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """An update's metrics over the whole batch: each rank's means over
+        its equal share, averaged over ``data``.  Without a mesh, as they
+        are."""
+        if self.mesh is None or not metrics:
+            return metrics
+        means = [metrics[k].clone() for k in BATCH_METRICS]
+        self.mesh.mean_(means, DATA_AXIS)
+        return {**metrics, **dict(zip(BATCH_METRICS, means))}
+
     def update_many(self, state: SACState, batches,
                     generator: Optional[torch.Generator] = None):
         """Chained updates over a sequence of batches (reference loop
-        mbrl.py:562-564); returns the state and the last update's metrics."""
+        mbrl.py:562-564); returns the state and the last update's metrics
+        (over the whole batch)."""
         metrics = {}
         for batch in batches:
             state, metrics = self.update(state, batch, generator)
-        return state, metrics
+        return state, self.global_metrics(metrics)

@@ -28,7 +28,11 @@ pytorch-lightning).
     set (on the card, ``fuse_fit``) the step and the validation step
     replay CUDA graphs captured at their first use (``utils/graphs.py``);
     the JAX package's ``lax.while_loop`` over epochs has no counterpart in
-    a graph without conditional nodes, hence the per-epoch pull.
+    a graph without conditional nodes, hence the per-epoch pull.  With a
+    ``mesh`` (``parallel/mesh.py``) the members are sharded over ``model``
+    (the JAX package's ``shard_map``): a rank draws every member's batch
+    and trains its own members, the pull is gathered over ``model`` before
+    the host decides, and the stacked state is gathered at the end.
   * the optimizer is optax's ``clip_by_global_norm`` (per member, when
     ``gradient_clip_val``) followed by ``scale_by_adam`` (b1 0.9, b2 0.999,
     eps 1e-8) and the step ``-lr``, with the learning rate set per epoch
@@ -55,6 +59,7 @@ from pdecontrol_tpu_torch.models.surrogate import (
     member_axis_views,
     stack_parameters,
 )
+from pdecontrol_tpu_torch.parallel.mesh import MODEL_AXIS
 from pdecontrol_tpu_torch.utils.graphs import tensors_of
 
 # optax.scale_by_adam's defaults.
@@ -105,9 +110,16 @@ class TrainerState:
     def member(self, i: int) -> "TrainerState":
         """Member ``i`` as a one-member state whose tensors are views of
         this state's."""
-        s = slice(i, i + 1)
-        return TrainerState([self.modules[i]], self.params[s], self.exp_avg[s],
-                            self.exp_avg_sq[s], self.count[s], self.global_step[s])
+        return self.rows(slice(i, i + 1))
+
+    def rows(self, s: slice) -> "TrainerState":
+        """The members ``s`` as a state whose tensors are views of this
+        state's."""
+        return TrainerState(self.modules[s], *(t[s] for t in self.tensors()))
+
+    def tensors(self) -> List[torch.Tensor]:
+        """The stacked tensors, each with the member axis leading."""
+        return [self.params, self.exp_avg, self.exp_avg_sq, self.count, self.global_step]
 
     def stacked_params(self) -> Dict[str, torch.Tensor]:
         return member_axis_views(self.params, self.modules[0])
@@ -179,6 +191,7 @@ class SurrogateTrainer:
         # card, replays its steps as CUDA graphs.
         self.fuse_fit = True
         self.graphs = None
+        self.mesh = None
         self._inputs: Optional[FitInputs] = None
 
     # ------------------------------------------------------------------ init
@@ -506,12 +519,16 @@ class SurrogateTrainer:
 
         t_prep0 = time.perf_counter()
         m = state.num_members
+        mesh = self.mesh
+        # This rank's members and their state.
+        rows = None if mesh is None else mesh.model_slice(m)
+        local = state if rows is None else state.rows(rows)
         fill, train_np, val_np = _host_inputs(hints, replay, train_mask, val_mask)
         # Cumulative step basis so a steptype='step' curriculum advances
         # across retrains (matches fit's start_step + steps_taken).
         start_step = (int(hints["start_step"]) if "start_step" in hints
                       else int(state.global_step.max()))
-        inp = self._fit_inputs(state, train_mask.shape[0])
+        inp = self._fit_inputs(local, train_mask.shape[0])
         inp.train_mask.copy_(train_mask)
         inp.val_mask.copy_(val_mask)
         graph_state = tensors_of(state, replay, und, stransf, inp)
@@ -539,21 +556,25 @@ class SurrogateTrainer:
             if max_steps:
                 nb_eff = max(0, min(nb, max_steps - int(steps_taken.max())))
 
+            def draw(mask, length):
+                # Every member's batch, of which a rank of a mesh keeps its own.
+                obs, actions = self._draw_members(replay, generator, m, length, mask,
+                                                  stransf)
+                return (obs, actions) if rows is None else (obs[rows], actions[rows])
+
             def train_body(length=length):
-                obs, actions = self._draw_members(replay, generator, m, length,
-                                                  inp.train_mask, stransf)
-                return self.lockstep_train_step(state, obs, actions, und, inp.lr,
+                obs, actions = draw(inp.train_mask, length)
+                return self.lockstep_train_step(local, obs, actions, und, inp.lr,
                                                 inp.active)
 
             def val_body(length=length):
-                obs, actions = self._draw_members(replay, generator, m, length,
-                                                  inp.val_mask, stransf)
-                return self.lockstep_val_step(state, obs, actions, und,
+                obs, actions = draw(inp.val_mask, length)
+                return self.lockstep_val_step(local, obs, actions, und,
                                               stransf)["val_loss"]
 
             t0 = time.perf_counter()
             inp.lr.fill_(lr)
-            inp.active.copy_(torch.as_tensor(~stopped))
+            inp.active.copy_(torch.as_tensor(~stopped if rows is None else ~stopped[rows]))
             tl = None
             for _ in range(nb_eff):
                 # The clip is read when the step is captured, so it keys it.
@@ -567,8 +588,12 @@ class SurrogateTrainer:
             t_dispatch += time.perf_counter() - t0
 
             # The epoch's one pull: the val losses and the mean over all
-            # members of the last batch's train loss.
+            # members of the last batch's train loss, every member's on
+            # every rank of a mesh, so that all stop the same members.
             t0 = time.perf_counter()
+            if mesh is not None:
+                vl, *tl = mesh.gather([vl] + ([] if tl is None else [tl]), MODEL_AXIS)
+                tl = tl[0] if tl else None
             pulled = (vl if tl is None else torch.cat([vl, torch.mean(tl)[None]]))
             pulled = pulled.to("cpu", torch.float64).numpy()
             vl = pulled[:m]
@@ -593,6 +618,9 @@ class SurrogateTrainer:
                 "lr": lr,
             }
 
+        if mesh is not None:
+            # Every rank holds every member for the rollouts.
+            mesh.gather_rows_(state.tensors(), MODEL_AXIS)
         logs["steps"] = int(steps_taken.max())
         logs["t_fit_prep"] = round(t_prep, 4)
         logs["t_fit_dispatch"] = round(t_dispatch, 4)

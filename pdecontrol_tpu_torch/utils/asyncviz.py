@@ -15,6 +15,9 @@ threads).
 
 Jobs are exception-guarded: a failed render (matplotlib missing, a full
 disk) prints a warning and never kills training.
+
+``enabled=False`` drops every job: a rank other than the primary of a
+multi-process run writes no files (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from typing import Callable, List
 
 
 class BackgroundRenderer:
-    def __init__(self) -> None:
+    def __init__(self, enabled: bool = True) -> None:
+        self.enabled = enabled
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="viz")
         self._pending: List = []
@@ -32,6 +36,8 @@ class BackgroundRenderer:
     def submit(self, fn: Callable[[], None]) -> None:
         """Queue a no-arg job; capture loop state (iteration numbers,
         arrays) by value in the closure before submitting."""
+        if not self.enabled:
+            return
 
         def guarded() -> None:
             try:

@@ -12,7 +12,7 @@ it from then on:
     capture leaves their state where it was; a replay advances it by what
     the captured draws consumed, as an eager run of the body would, so a
     snapshot taken after replays holds the state of the eager run;
-  * the kernels' launch counts (``ops/pallas_ks.py`` and
+  * the kernels' launch and row counts (``ops/pallas_ks.py`` and
     ``ops/pallas_ks_packed.py``) go up by what a capture launched each time
     the graph replays, not when it is captured;
   * the addresses of the tensors the body reads and writes are noted at
@@ -34,7 +34,8 @@ import torch
 
 from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed
 
-# Modules whose ``launch_count`` counts a hand-written kernel's launches.
+# Modules whose ``launch_count`` and ``rows_launched`` count a hand-written
+# kernel's launches and the rows they stepped.
 KERNEL_MODULES = (pallas_ks, pallas_ks_packed)
 
 
@@ -91,6 +92,7 @@ class CapturedGraph:
     addresses: List[int]  # data_ptr of every tensor of the body's state
     seconds: float  # the capture's wall time
     pool_bytes: int  # what the capture added to the shared pool
+    rows: Dict[object, int] = dataclasses.field(default_factory=dict)  # module -> rows per replay
 
     def replay(self, state: Sequence[torch.Tensor]) -> torch.Tensor:
         if [t.data_ptr() for t in state] != self.addresses:
@@ -99,6 +101,8 @@ class CapturedGraph:
         self.graph.replay()
         for module, n in self.launches.items():
             module.launch_count += n
+        for module, n in self.rows.items():
+            module.rows_launched += n
         return self.output
 
 
@@ -123,7 +127,7 @@ class GraphCache:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
-        counts = {m: m.launch_count for m in KERNEL_MODULES}
+        counts = {m: (m.launch_count, m.rows_launched) for m in KERNEL_MODULES}
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
@@ -136,13 +140,15 @@ class GraphCache:
                 output = body()
         finally:
             # A capture launches nothing; its replays do.
-            launches = {m: m.launch_count - n for m, n in counts.items()}
-            for m, n in counts.items():
-                m.launch_count = n
+            launches = {m: m.launch_count - n for m, (n, _) in counts.items()}
+            rows = {m: m.rows_launched - r for m, (_, r) in counts.items()}
+            for m, (n, r) in counts.items():
+                m.launch_count, m.rows_launched = n, r
         torch.cuda.synchronize()
         captured = CapturedGraph(
             graph=graph, output=output,
             launches={m: n for m, n in launches.items() if n},
+            rows={m: n for m, n in rows.items() if n},
             addresses=[t.data_ptr() for t in state],
             seconds=time.perf_counter() - t0,
             pool_bytes=torch.cuda.memory_reserved() - reserved,

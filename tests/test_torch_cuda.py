@@ -20,7 +20,9 @@ the generator as they were, and a rebound parameter makes a replay raise.
 The group after it
 holds each surrogate family's rollout and a Burgers control period on the
 card to the same computation on the CPU (rtol 3e-5, atol 3e-6, the float32
-tolerance of tests/test_env_solvers.py).  Every test here
+tolerance of tests/test_env_solvers.py).  The last group runs two rank
+processes of a mesh on the card through gloo: a gather, the sharded collect
+through K1 and a data-parallel SAC update.  Every test here
 needs a card
 and skips without one.  This file imports no JAX, so that it runs where JAX
 is not installed:
@@ -646,3 +648,57 @@ def test_burgers_period_on_the_card_matches_the_cpu(dev, objective, batch):
     torch.testing.assert_close(got.obs.cpu(), ref.obs, rtol=3e-5, atol=3e-6)
     torch.testing.assert_close(got.reward.cpu(), ref.reward, rtol=3e-5, atol=3e-6)
     assert (pallas_ks.launch_count, pallas_ks_packed.launch_count) == before
+
+
+# ------------------------------------------------------------ the mesh
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """Two rank processes on the one card, through gloo
+    (``tests/torch_mesh_ranks.py`` in its ``cuda`` mode), each with a time
+    limit; their receipts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import json
+    import os
+    import sys
+
+    from pdecontrol_tpu_torch.parallel.dryrun import free_port, launch
+
+    out = tmp_path_factory.mktemp("ranks")
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_mesh_ranks.py")
+    address = f"localhost:{free_port()}"
+    launch([[sys.executable, script, "cuda", str(i), "2", address, str(out)] for i in range(2)],
+           240, str(out))
+    return [json.load(open(out / f"cuda{i}.json")) for i in range(2)]
+
+
+def test_ranks_take_their_device_and_backend_from_the_layout(two_ranks):
+    """On one card both ranks share it through gloo; with a card each, NCCL."""
+    count = torch.cuda.device_count()
+    want = "gloo" if count < 2 else "nccl"
+    assert [(r["device"], r["backend"]) for r in two_ranks] == [
+        (f"cuda:{i % count}", want) for i in range(2)]
+
+
+def test_gather_by_all_reduce_equals_concatenation(two_ranks):
+    """Float32, int32 and bool rows of two ranks, gathered through a sum of
+    zero-filled buffers on the card: bitwise the whole tensors."""
+    assert all(r["gather_equal"] for r in two_ranks)
+
+
+def test_sharded_collect_through_k1_equals_one_rank(two_ranks):
+    """Three steps of 10 envs, 5 a rank, through K1 (one warp per row): the
+    rewards, the fields and the step counters equal the same steps on one
+    rank bitwise; each rank launched K1 3 times on its 5 rows for them."""
+    for r in two_ranks:
+        assert r["collect_equal"]
+        assert r["k1"] == [3, 15]
+
+
+def test_sac_gradient_all_reduce_keeps_the_networks_on_the_card(two_ranks):
+    """One SAC update with the batch over data: the networks and their
+    averaged gradients stay on the card, and are equal on both ranks."""
+    assert all(r["sac_on_card"] for r in two_ranks)
+    assert two_ranks[0]["sac_params"] == two_ranks[1]["sac_params"]
+    print("largest gap to the one-rank update:", [r["sac_gap"] for r in two_ranks],
+          "qf_loss:", [r["sac_qf_gap"] for r in two_ranks])

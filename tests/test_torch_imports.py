@@ -38,7 +38,9 @@ def test_sources_found():
                    "utils/checkpoint.py", "utils/asyncviz.py", "utils/waterfall.py",
                    "viz/plots.py", "viz/report.py", "mbrl/agents.py", "ops/burgers.py",
                    "envs/burgers.py", "envs/gym_compat.py", "train/metrics.py",
-                   "evaluation/generate.py", "evaluation/evaluate.py"):
+                   "evaluation/generate.py", "evaluation/evaluate.py",
+                   "parallel/distributed.py", "parallel/mesh.py", "parallel/sharded.py",
+                   "parallel/dryrun.py", "parallel/dryrun_mp.py", "utils/native.py"):
         assert PORT / module in SOURCES, module
 
 

@@ -6,6 +6,7 @@ tiny ``learn()`` on the CPU through the port's CLI entry point."""
 import json
 import math
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from pdecontrol_tpu_torch.mbrl.transform_sets import ControllerTransforms
 from pdecontrol_tpu_torch.mbrl.world import WorldModel
 from pdecontrol_tpu_torch.models import factories as TF
 from pdecontrol_tpu_torch.models.surrogate import init_ensemble
+from pdecontrol_tpu_torch.parallel.dryrun import launch
 from pdecontrol_tpu_torch.sac.sac import SAC, SACConfig
 
 N, B, TAU = 16, 4, 2
@@ -206,16 +208,40 @@ def test_learn_smoke_through_cli_pallas_packed(tmp_path, monkeypatch):
     assert cfg["solver"] == "pallas_packed" and cfg["pallas_precision"] == "bf16_3x"
 
 
-@pytest.mark.parametrize("flags", [
-    ["--data_parallel", "2"], ["--model_parallel", "2"], ["--wandb"],
-    ["--coordinator_address", "localhost:1"],
-])
+@pytest.mark.parametrize("flags", [["--wandb"]])
 def test_unported_flags_raise(flags, tmp_path):
-    """The three flags that used to raise here and now run
-    (``--factory KSLatentLSTM``, ``--loss KSPhyPDELoss``, ``--env_id
-    BurgersEnv-v0``) are cases of ``tests/test_torch_slice_families.py``."""
+    """The flags that used to raise here and now run: ``--factory
+    KSLatentLSTM``, ``--loss KSPhyPDELoss`` and ``--env_id BurgersEnv-v0``
+    are cases of ``tests/test_torch_slice_families.py``; the mesh flags and
+    ``--coordinator_address`` are cases of ``test_mesh_flags``."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         script.main(SMOKE_ARGS + ["--run_dir", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--data_parallel", "2"], ["--model_parallel", "2"],
+    ["--data_parallel", "2", "--coordinator_address"],
+], ids=["data_parallel", "model_parallel", "coordinator_address"])
+def test_mesh_flags(flags, tmp_path):
+    """A mesh flag without the processes of its ranks raises a ValueError
+    that names the flags which start them; with ``--coordinator_address``
+    two rank processes on the CPU run the smoke arguments to exit 0, and
+    only rank 0 writes."""
+    if "--coordinator_address" not in flags:
+        with pytest.raises(ValueError, match="--coordinator_address"):
+            script.main(SMOKE_ARGS + ["--run_dir", str(tmp_path)] + flags)
+        return
+    address = "file://" + str(tmp_path / "rendezvous")
+    cmds = [[sys.executable, "-m", "pdecontrol_tpu_torch.mbrl.script", *SMOKE_ARGS,
+             *flags, address, "--num_processes", "2", "--process_id", str(i),
+             "--run_dir", str(tmp_path / f"run{i}")] for i in range(2)]
+    outs = launch(cmds, 120, str(tmp_path), env=dict(os.environ, OMP_NUM_THREADS="1"))
+    for i, out in enumerate(outs):
+        assert f"[distributed] rank {i} of 2: backend gloo, device cpu" in out
+        assert '"K1": 0' in out  # the plain version on the CPU
+    records = [json.loads(line) for line in open(tmp_path / "run0" / "metrics.jsonl")]
+    assert [r["iteration"] for r in records if "iteration" in r] == list(range(8))
+    assert not (tmp_path / "run1").exists()
 
 
 # The fields of a retrain record on each fit route: the JAX package's
