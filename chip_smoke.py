@@ -25,8 +25,13 @@ Seventeen phases, each timed:
      for a few iterations (see ``MAIN_ARGS``), by default: every iteration
      that does not retrain replays the CUDA graph of the fused iteration,
      captured at iteration 1, and its record carries the fused fields
-     (``t_dispatch`` and ``t_ready``, ``t_capture`` where it captured); the
-     phase checks K1's launch count (replays included),
+     (``t_dispatch`` and ``t_ready``, ``t_capture`` where it captured); a
+     retrain iteration replays a graph of each phase (collect, imagine,
+     the SAC updates) and of each evaluation, captured at their first
+     call, and its record carries the captures made since the previous
+     one (``t_capture``, ``graph_pool_mb``); the retrains' ``t_imagine``,
+     ``t_policy`` and ``t_eval`` and the path's peak memory are printed;
+     the phase checks K1's launch count (replays included),
      that every logged loss and return is finite, that ``metrics.jsonl``
      exists, that ``checkpoints/`` holds the steps 2, 4 and 6, and that the
      evaluation artifacts of iteration 0 (and, where the host has matplotlib
@@ -38,18 +43,25 @@ Seventeen phases, each timed:
      then K2's and the plain version's time per period for ``bf16_3x`` at
      batch 10, 64 and 1024 and for ``bf16_4x`` at batch 10, beside the
      roofline bound;
-  5. the attractor gate (``pdecontrol_tpu_torch.evaluation.bf16_gate``) at
-     full size: one float32 run of 512 envs x 400 periods after 100,
-     compared with a ``bf16_3x`` and a ``bf16_4x`` run; both verdicts must
-     pass, and each error is printed beside the TPU receipt's
+  5. the attractor gate (``pdecontrol_tpu_torch.evaluation.bf16_gate``):
+     first the float32 side's rollout at 64 envs x (10 + 20) periods with
+     each period replayed from its CUDA graph against the same rollout
+     eagerly, bitwise, both timed; then at full size: one float32 run of
+     512 envs x 400 periods after 100, compared with a ``bf16_3x`` and a
+     ``bf16_4x`` run, every period a replay; both verdicts must pass, and
+     each error is printed beside the TPU receipt's
      (``results/bf16_fidelity_{3x,4x}.json``);
   6. the bf16_3x MBPO path — ``MAIN_ARGS`` with ``--solver pallas_packed``
      and ``pallas_precision`` bf16_3x (``runscripts/mbpo_ks_bf16.sh``), and
      an evaluation at iteration 5 as well, which runs on the fused route
      (``t_fused``); checked as phase 3, and K2 must have launched;
   7. the model-free SAC baseline CLI (``pdecontrol_tpu_torch.sac.train``)
-     through K2 for 5,000 env steps; K2 must have launched and every logged
-     loss and return must be finite;
+     through K2 for 5,000 env steps, every chunk after the first replaying
+     its CUDA graph; K2 must have launched and every logged loss and return
+     must be finite; then two trainers of the same arguments, one built
+     with ``graphs=False``, from one state: three chunks of 100 env steps
+     and two evaluations each, which must be equal bitwise, and both
+     routes' env steps per second;
   8. restart: a new controller built from phase 3's arguments with
      ``--resume`` and two more iterations' worth of steps must restore
      iteration 6 with phase 3's counters, run iterations 6 and 7 without a
@@ -74,15 +86,21 @@ Seventeen phases, each timed:
      dataset of ``runscripts/offline.sh`` (KS, 100 episodes of 400 steps,
      through K1), then ``pdecontrol_tpu_torch.evaluation.evaluate`` runs
      ``runscripts/capacity.sh``'s arguments for each of the five factories,
-     cut to one fold and two epochs; each fold's ``MSE``, ``nrmse_final``
-     and ``val_loss`` must be finite and its npz must hold the metric
-     battery's keys; one line per factory gives the train steps, the
-     seconds per TBPTT step and the ``MSE``;
- 13. fused against eager — ``MAIN_ARGS`` with ``--no_fuse_iteration``: every
-     iteration runs its phases eagerly, each timed after a synchronisation;
-     K1 must launch as in phase 3, and the 6 records must equal phase 3's in
-     every field that does not read the clock.  Both runs' non-retrain
-     iteration wall times are printed.  Then the cost of the world step's
+     cut to one fold and two epochs, its TBPTT and validation steps replayed
+     from CUDA graphs; each fold's ``MSE``, ``nrmse_final`` and
+     ``val_loss`` must be finite and its npz must hold the metric battery's
+     keys; one line per factory gives the train steps, the seconds per
+     TBPTT step and the ``MSE``; then the first factory's fold again,
+     graphed and eagerly: results and metric arrays equal bitwise, and both
+     routes' seconds per TBPTT step;
+ 13. the routes — ``MAIN_ARGS`` with ``--no_fuse_iteration`` (every
+     iteration runs its phases one after another, each a replayed CUDA
+     graph timed after a synchronisation), and the same arguments in a
+     controller built with ``graphs=False`` (every phase and the fit
+     eager): K1 must launch as in phase 3 in both, and the 6 records of each
+     must equal phase 3's in every field that does not read the clock.  The
+     three routes' non-retrain iteration wall times and the two unfused
+     routes' phase times are printed.  Then the cost of the world step's
      auto-reset, on phase 8's controller: ``imagine`` at horizon 3 with
      the port's form (a reset drawn at every step but a round's last, picked
      on the card), the JAX package's (a reset drawn at every step) and a
@@ -93,12 +111,15 @@ Seventeen phases, each timed:
      (iteration 6) restored into a controller of each fit route, each of
      which retrains once at the flagship's ``iterations`` trainer config
      (patience 5, ``min_steps`` 50) cut to ``max_steps`` 50:
-     ``--sequential_member_training``, ``--no_fuse_fit`` and the default;
-     each route's ``t_fit_total``, its seconds per lock-step step and per
-     member-step, the default route's capture time and pool growth, and
-     the share of computed member-steps that belonged to members already
-     stopped are printed, and the default route's parameters, Adam state and
-     val losses must equal ``--no_fuse_fit``'s exactly;
+     ``--sequential_member_training`` (one member after another, each step
+     a replayed graph), the same with ``--no_fuse_fit`` (eager),
+     ``--no_fuse_fit`` and the default; each route's ``t_fit_total``, its
+     seconds per lock-step step and per member-step, the graphed routes'
+     capture time and pool growth, and the share of computed member-steps
+     that belonged to members already stopped are printed; the default
+     route's parameters, Adam state and val losses must equal
+     ``--no_fuse_fit``'s exactly, and the graphed sequential route's its
+     eager run's;
  15. native — the C++ host solver (``pdecontrol_tpu_torch/utils/native.py``,
      built from ``native/ks_solver.cc`` into ``build/native/``) against K1
      over one 250-sub-step period at batch 10, both objectives, in float64
@@ -128,14 +149,15 @@ Every retrain of the MBPO paths (phases 3, 6 and 8 to 11 and 13) runs the
 default lock-step fit, its TBPTT and validation steps replayed from CUDA
 graphs: each retrain record must carry that route's fields
 (``t_fit_prep``, ``t_fit_dispatch``, ``t_fit_ready``), and each run's first
-retrain the fit's captures (``t_fit_capture``).
+retrain the fit's captures (``t_fit_capture``); phase 13's controller
+built with ``graphs=False`` fits eagerly.
 
 Every path of phases 3, 6 to 13 and 17 runs with the kernels' launch counts
 set to 0 just before it, and they are read just after it (a rank process of
 phase 17 starts at 0 and prints its counts at its end); K1 runs the
 reset-pool transient of every KS path.  The script prints the card's name and power
-limit, one JSON line describing the kernels, and as its last line
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+limit, the whole script's seconds, one JSON line describing the kernels,
+and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, or when any phase fails, it exits non-zero and
 prints no result.
 """
@@ -159,6 +181,8 @@ RUN_DIR_LATENT = os.path.join(HERE, "runs", "chip_smoke_latent")
 RUN_DIR_BURGERS = os.path.join(HERE, "runs", "chip_smoke_burgers")
 RUN_DIR_OFFLINE = os.path.join(HERE, "runs", "chip_smoke_offline")
 RUN_DIR_EAGER = os.path.join(HERE, "runs", "chip_smoke_eager")
+RUN_DIR_NO_GRAPHS = os.path.join(HERE, "runs", "chip_smoke_no_graphs")
+RUN_DIR_SAC_ROUTES = os.path.join(HERE, "runs", "chip_smoke_sac_routes")
 RUN_DIR_FIT = os.path.join(HERE, "runs", "chip_smoke_fit")
 RUN_DIR_MESH = os.path.join(HERE, "runs", "chip_smoke_mesh")
 RUN_DIR_MESH_ONE = os.path.join(HERE, "runs", "chip_smoke_mesh_1x1")
@@ -238,8 +262,10 @@ def with_args(args, **changes):
     return out
 
 
-# Phase 13: the main path with the eager phases.
+# Phase 13: the main path with the phases one after another (each a graph),
+# and in a controller built with graphs=False.
 EAGER_ARGS = with_args(MAIN_ARGS, run_dir=RUN_DIR_EAGER) + ["--no_fuse_iteration"]
+NO_GRAPHS_ARGS = with_args(EAGER_ARGS, run_dir=RUN_DIR_NO_GRAPHS)
 # Fields of a record that read the host's clock or its garbage collector
 # (and every t_* timer), or the graph pool's size.
 CLOCK_FIELDS = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2",
@@ -265,6 +291,8 @@ FIT_ARGS = with_args(
                         "iterations": {"min_steps": 50, "max_steps": 50}}),
 )
 FIT_ROUTES = {"--sequential_member_training": ["--sequential_member_training"],
+              "--sequential_member_training --no_fuse_fit": ["--sequential_member_training",
+                                                              "--no_fuse_fit"],
               "--no_fuse_fit": ["--no_fuse_fit"], "default": []}
 SNAPSHOT_STEP = 6
 # The fields of a retrain record on the default fit route.
@@ -728,6 +756,35 @@ def check_limb_kernel(errors, k1_errors):
     return timings
 
 
+def gate_routes():
+    """Phase 5, first: the float32 side's rollout at 64 envs x (10 + 20)
+    periods with each period replayed from its CUDA graph, against the same
+    rollout eagerly; the statistics must be equal bitwise."""
+    import numpy as np
+    import torch
+
+    from pdecontrol_tpu_torch.envs.kuramoto import KuramotoSivashinsky
+    from pdecontrol_tpu_torch.evaluation import bf16_gate
+
+    dev = torch.device("cuda")
+    env = KuramotoSivashinsky.create(solver="xla", device=dev)
+    u0 = torch.rand((64, env.n), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev) * 2 - 1
+    out, seconds = {}, {}
+    for graphs in (True, False, True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[graphs] = bf16_gate.rollout_stats_from(env, u0, 10, 20, graphs=graphs)
+        torch.cuda.synchronize()
+        seconds.setdefault(graphs, []).append(time.perf_counter() - t)
+    spectra = [out[g].pop("spectrum") for g in (True, False)]
+    if out[True] != out[False] or not np.array_equal(*spectra):
+        raise AssertionError(f"the gate's graphed rollout differs from the eager one: {out}")
+    print(f"   float32 side, 64 envs x (10 + 20) periods: graphed {seconds[True][0]:.2f} s "
+          f"(captures included) / {seconds[True][1]:.2f} s, eager {seconds[False][0]:.2f} s; "
+          f"statistics equal bitwise", flush=True)
+
+
 def run_gate():
     """Phase 5: the attractor gate at its full size."""
     import torch
@@ -872,11 +929,13 @@ def check_outputs(run_dir, steps, evals=(0,)):
     print(f"   checkpoints {names}; plots {sorted(plots)}", flush=True)
 
 
-def check_route(records, fused):
+def check_route(records, fused, graphs=True):
     """Each iteration's fields say which route ran it: a retrain, or every
-    iteration under ``--no_fuse_iteration``, times its eager phases; any
-    other iteration is dispatched as one body and pulled late (``t_ready``)
-    or, on an evaluation iteration, at once (``t_fused``)."""
+    iteration under ``--no_fuse_iteration``, times its phases one after
+    another; any other iteration is dispatched as one body and pulled late
+    (``t_ready``) or, on an evaluation iteration, at once (``t_fused``).
+    With graphs, iteration 0 captures its phases' graphs (``t_capture``);
+    without, nothing captures."""
     for r in records:
         if not fused or "t_surrogate" in r:
             want, banned = {"t_collect", "t_imagine", "t_policy", "t_pull"}, "t_dispatch"
@@ -886,31 +945,46 @@ def check_route(records, fused):
         if not want <= set(r) or banned in r:
             raise AssertionError(f"iteration {r['iteration']} ran the wrong route: "
                                  f"{sorted(k for k in r if k.startswith('t_'))}")
-    if fused and not any("t_capture" in r for r in records):
-        raise AssertionError("no iteration captured the fused iteration's graph")
-    check_fit_route(records)
+    captured = [r["iteration"] for r in records if "t_capture" in r]
+    if graphs and (0 not in captured or (fused and len(captured) < 2)):
+        raise AssertionError(f"the graphs were captured at iterations {captured}")
+    if not graphs and captured:
+        raise AssertionError(f"the run without graphs captured at iterations {captured}")
+    check_fit_route(records, graphs)
 
 
-def check_fit_route(records):
+def check_fit_route(records, graphs=True):
     """Every retrain ran the default lock-step fit, its steps from graphs
-    captured at the run's first retrain."""
+    captured at the run's first retrain (or eagerly, without graphs)."""
     retrains = [r for r in records if "t_surrogate" in r]
     for r in retrains:
         if not FIT_FIELDS <= set(r) or "t_fit_val" in r:
             raise AssertionError(f"iteration {r['iteration']}'s retrain ran another fit "
                                  f"route: {sorted(k for k in r if k.startswith('t_fit'))}")
-    if retrains and "t_fit_capture" not in retrains[0]:
-        raise AssertionError("the first retrain did not capture the fit's graphs")
+    if retrains and ("t_fit_capture" in retrains[0]) != graphs:
+        raise AssertionError(f"the first retrain's fit captured {retrains[0].get('t_fit_capture')}"
+                             f" (graphs {graphs})")
 
 
-def run_mbpo(args, run_dir, kernels, fused=True, evals=(0,)):
+def run_mbpo(args, run_dir, kernels, fused=True, evals=(0,), graphs=True):
     """Phases 3, 6, 10, 11 and 13: the port's MBPO CLI entry point for 6
-    iterations."""
+    iterations, or with ``graphs=False`` its controller built so."""
     from pdecontrol_tpu_torch.mbrl import script
 
     shutil.rmtree(run_dir, ignore_errors=True)
-    print("   args: " + " ".join(args), flush=True)
-    rc, counts = counted_run("script.main", lambda: script.main(args))
+    if graphs:
+        print("   args: " + " ".join(args), flush=True)
+        rc, counts = counted_run("script.main", lambda: script.main(args))
+    else:
+        def learn():
+            ctl = build_controller(args, graphs=False)
+            try:
+                ctl.learn()
+            finally:
+                ctl.logger.finish()
+            return 0
+
+        rc, counts = counted_run("learn() of a controller built with graphs=False", learn)
     if rc != 0:
         raise RuntimeError(f"learn() failed (script.main returned {rc})")
     require(counts, kernels, "the MBPO run")
@@ -921,7 +995,7 @@ def run_mbpo(args, run_dir, kernels, fused=True, evals=(0,)):
     retrains = sum(1 for r in records if "num_ensemble_updates" in r)
     if len(iters) != 6 or retrains < 2:
         raise AssertionError(f"{len(iters)} iterations, {retrains} retrains")
-    check_route(iters, fused)
+    check_route(iters, fused, graphs)
     for r in iters:
         t = {k: v for k, v in r.items() if k.startswith("t_") or k == "graph_pool_mb"}
         print(f"   iteration {r['iteration']}: {json.dumps(t)} "
@@ -932,6 +1006,18 @@ def run_mbpo(args, run_dir, kernels, fused=True, evals=(0,)):
     for k, vals in seen.items():
         print(f"   {k}: {vals}", flush=True)
     return counts
+
+
+def print_retrains(run_dir):
+    """The phase times and captures of each retrain iteration of a run."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    for r in records:
+        if "t_surrogate" in r:
+            fields = ("t_collect", "t_surrogate", "t_fit_total", "t_imagine", "t_policy",
+                      "t_pull", "t_eval", "t_capture", "graph_pool_mb")
+            print(f"   retrain iteration {r['iteration']}: " + ", ".join(
+                f"{k} {r[k]}" for k in fields if k in r), flush=True)
 
 
 def run_burgers():
@@ -1006,6 +1092,27 @@ def run_offline():
         raise AssertionError(f"the offline path launched {counts}, expected K1 "
                              f"{GENERATE_K1_LAUNCHES} times and K2 never")
 
+    # The first factory's fold, graphed and eagerly, from one state.
+    data = dict(np.load(OFFLINE_DATA))
+    out = {}
+    for graphs in (True, False):
+        args = evaluate.build_parser().parse_args(with_args(
+            evaluate_args(FACTORIES[0]),
+            output=os.path.join(RUN_DIR_OFFLINE, f"fold_graphs_{graphs}")))
+        split = next(evaluate.fold_splits(args, data["obs"].shape[0]))
+        res = evaluate.run_fold(args, data, *split, 0, graphs=graphs)
+        with np.load(os.path.join(args.output, "fold0_metrics.npz")) as z:
+            out[graphs] = (res, {k: z[k] for k in z.files})
+    (gres, gz), (eres, ez) = out[True], out[False]
+    differ = [k for k in gres if k != "train_time" and gres[k] != eres[k]]
+    differ += [k for k in gz if not np.array_equal(gz[k], ez[k])]
+    if differ or gz.keys() != ez.keys():
+        raise AssertionError(f"the graphed fold differs from the eager one in {differ}")
+    print(f"   {FACTORIES[0]} fold 0 graphed and eager equal bitwise (val_loss, MSE and the "
+          f"{len(gz)} battery arrays); seconds per TBPTT step graphed "
+          f"{gres['train_time'] / gres['train_steps']:.4f} (captures included), eager "
+          f"{eres['train_time'] / eres['train_steps']:.4f}", flush=True)
+
 
 def run_sac():
     """Phase 7: the SAC baseline CLI through K2."""
@@ -1029,14 +1136,68 @@ def run_sac():
     return counts
 
 
-def build_controller(args):
+def sac_routes():
+    """Phase 7, then: two trainers of ``SAC_ARGS`` from one state, one built
+    with ``graphs=False``; after the random warmup, three chunks and two
+    evaluations each must be equal bitwise, with every written tensor and
+    the generator after them."""
+    import torch
+
+    from pdecontrol_tpu_torch.sac import train
+    from pdecontrol_tpu_torch.utils.graphs import tensors_of
+
+    args = train.build_parser().parse_args(with_args(SAC_ARGS, run_dir=RUN_DIR_SAC_ROUTES))
+    trainers = {}
+    for graphs in (True, False):
+        trainer = trainers[graphs] = train.SACTrainer(args, graphs=graphs)
+        trainer.run_chunk(max(args.learning_starts // args.num_envs, 1), True, 0)
+
+    def state(t):
+        return tensors_of(t.env_state, t.tr, t.pool, t.replay, t.sac_state) + [
+            t.gen.get_state()]
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+    if not equal(state(trainers[True]), state(trainers[False])):
+        raise AssertionError("the two SAC trainers start from different states")
+    seconds = {True: [], False: []}
+    for label, call in [("chunk", lambda t: t.run_chunk(args.chunk, False,
+                                                         args.updates_per_step))] * 3 + [
+            ("evaluation", lambda t: t.evaluate())] * 2:
+        outs = {}
+        for graphs, trainer in trainers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[graphs] = call(trainer)
+            torch.cuda.synchronize()
+            seconds[graphs].append(time.perf_counter() - t0)
+        a, b = outs[True], outs[False]
+        same = a == b if isinstance(a, dict) else equal(a, b)
+        if not same:
+            raise AssertionError(f"a graphed SAC {label} differs from the eager one: {a}, {b}")
+    graphed, eager = trainers[True], trainers[False]
+    if not equal(state(graphed), state(eager)) or (
+            graphed.sac_state.updates != eager.sac_state.updates):
+        raise AssertionError("the graphed SAC trainer's state differs from the eager one's")
+    steps = args.chunk * args.num_envs
+    g, e = seconds[True], seconds[False]
+    print(f"   graphed and eager SAC equal bitwise over 3 chunks of {args.chunk} env steps of "
+          f"{args.num_envs} envs (one update each) and 2 evaluations; chunk seconds graphed "
+          f"{[round(x, 4) for x in g[:3]]} (the first captures), eager "
+          f"{[round(x, 4) for x in e[:3]]}: {steps / (sum(g[1:3]) / 2):.1f} env steps per "
+          f"second graphed, {steps / (sum(e[1:3]) / 2):.1f} eager; evaluation seconds graphed "
+          f"{[round(x, 4) for x in g[3:]]}, eager {[round(x, 4) for x in e[3:]]}", flush=True)
+
+
+def build_controller(args, graphs=True):
     """The MBPO controller of the CLI's ``args``, on the card."""
     from pdecontrol_tpu_torch.mbrl import script
     from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController
 
-    print("   args: " + " ".join(args), flush=True)
+    print("   args: " + " ".join(args) + ("" if graphs else " (graphs=False)"), flush=True)
     return PDEModelBasedController(script.config_from_args(
-        script.build_parser().parse_args(args)))
+        script.build_parser().parse_args(args)), graphs=graphs)
 
 
 def run_restart():
@@ -1172,7 +1333,8 @@ def run_trace():
 
 def time_world_forms(ctl):
     """Milliseconds of one ``imagine(3)`` of the restored main-path
-    controller in three forms of the world step's auto-reset: eagerly (host
+    controller (its body, ``_imagine_body``, not the controller's own graph
+    of it) in three forms of the world step's auto-reset: eagerly (host
     clock around work that ends in a synchronisation, mean of 3 after one
     warm-up) and, where no value goes to the host, as a CUDA graph (CUDA
     events over 5 replays).  Draws and replay writes go to the controller's
@@ -1210,14 +1372,14 @@ def time_world_forms(ctl):
             for i in range(4):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                ctl.imagine(3)
+                ctl._imagine_body(3)
                 torch.cuda.synchronize()
                 if i:
                     eager.append(time.perf_counter() - t0)
             graphed = None
             if name != "host":
                 cache = GraphCache([ctl.gen])
-                captured = cache.capture(name, lambda: ctl.imagine(3)[1], [])
+                captured = cache.capture(name, lambda: ctl._imagine_body(3)[1], [])
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 captured.graph.replay()
                 start.record()
@@ -1236,13 +1398,17 @@ def time_world_forms(ctl):
 
 
 def run_fused_against_eager():
-    """Phase 13: the main path with ``--no_fuse_iteration``; its stream
+    """Phase 13: the main path with ``--no_fuse_iteration`` (the phases as
+    graphs) and in a controller built with ``graphs=False``; each stream
     must equal phase 3's (the first 6 records: phase 8 appended 2) in every
     field that does not read the clock."""
-    counts = run_mbpo(EAGER_ARGS, RUN_DIR_EAGER, ("K1",), fused=False)
-    if counts != {"K1": MAIN_K1_LAUNCHES, "K2": 0}:
-        raise AssertionError(f"the eager path launched {counts}, expected K1 "
-                             f"{MAIN_K1_LAUNCHES} times and K2 never")
+    runs = {"--no_fuse_iteration": (EAGER_ARGS, RUN_DIR_EAGER, True),
+            "graphs=False": (NO_GRAPHS_ARGS, RUN_DIR_NO_GRAPHS, False)}
+    for label, (args, run_dir, graphs) in runs.items():
+        counts = run_mbpo(args, run_dir, ("K1",), fused=False, graphs=graphs)
+        if counts != {"K1": MAIN_K1_LAUNCHES, "K2": 0}:
+            raise AssertionError(f"the {label} path launched {counts}, expected K1 "
+                                 f"{MAIN_K1_LAUNCHES} times and K2 never")
 
     def stream(run_dir):
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
@@ -1251,26 +1417,35 @@ def run_fused_against_eager():
     def strip(r):
         return {k: v for k, v in r.items() if k not in CLOCK_FIELDS and not k.startswith("t_")}
 
-    fused, eager = stream(RUN_DIR), stream(RUN_DIR_EAGER)
-    differ = []
-    for a, b in zip(fused, eager):
-        sa, sb = strip(a), strip(b)
-        if sa.keys() != sb.keys():
-            raise AssertionError(f"iteration {a['iteration']}: the fields differ "
-                                 f"({sorted(sa.keys() ^ sb.keys())})")
-        differ += [(a["iteration"], k, sa[k], sb[k]) for k in sa if sa[k] != sb[k]]
-    if differ:
-        raise AssertionError(f"the fused and eager streams differ: {differ}")
-    print(f"   fused (phase 3) and eager streams equal in all "
-          f"{sum(len(strip(r)) for r in fused)} non-clock fields of 6 records", flush=True)
-    for a, b in zip(fused, eager):
+    fused = stream(RUN_DIR)
+    streams = {label: stream(run_dir) for label, (_, run_dir, _) in runs.items()}
+    for label, other in streams.items():
+        differ = []
+        for a, b in zip(fused, other):
+            sa, sb = strip(a), strip(b)
+            if sa.keys() != sb.keys():
+                raise AssertionError(f"{label}, iteration {a['iteration']}: the fields differ "
+                                     f"({sorted(sa.keys() ^ sb.keys())})")
+            differ += [(a["iteration"], k, sa[k], sb[k]) for k in sa if sa[k] != sb[k]]
+        if differ or len(other) != len(fused):
+            raise AssertionError(f"the default and {label} streams differ: {differ}")
+        print(f"   default (phase 3) and {label} streams equal in all "
+              f"{sum(len(strip(r)) for r in fused)} non-clock fields of 6 records", flush=True)
+    phases = ("t_collect", "t_imagine", "t_policy", "t_pull")
+    graphed, eager = streams["--no_fuse_iteration"], streams["graphs=False"]
+    for a, b, c in zip(fused, graphed, eager):
+        times = {label: {k: r[k] for k in phases + ("t_eval",) if k in r}
+                 for label, r in (("graphed phases", b), ("eager phases", c))}
         if "t_surrogate" in a:
+            times = {"default": {k: a[k] for k in phases + ("t_eval",) if k in a}, **times}
+            print(f"   iteration {a['iteration']} (retrain): " + "; ".join(
+                f"{k} {json.dumps(v)}" for k, v in times.items()), flush=True)
             continue
-        eager_s = sum(b[k] for k in ("t_collect", "t_imagine", "t_policy", "t_pull"))
         print(f"   iteration {a['iteration']} (non-retrain): fused t_dispatch "
               f"{a['t_dispatch']} s + t_ready {a['t_ready']} s = "
-              f"{a['t_dispatch'] + a['t_ready']:.4f} s; eager phases {eager_s:.4f} s",
-              flush=True)
+              f"{a['t_dispatch'] + a['t_ready']:.4f} s; graphed phases "
+              f"{sum(b[k] for k in phases):.4f} s; eager phases "
+              f"{sum(c[k] for k in phases):.4f} s", flush=True)
 
 
 def run_fit_routes():
@@ -1288,7 +1463,7 @@ def run_fit_routes():
         out = {}
         for name, flags in FIT_ROUTES.items():
             ctl = build_controller(with_args(FIT_ARGS, run_dir=os.path.join(
-                RUN_DIR_FIT, name.strip("-"))) + flags)
+                RUN_DIR_FIT, name.replace("--", "").replace(" ", "_"))) + flags)
             try:
                 C.load_controller_state(ctl, snapshot)
                 ctl.update_delta_transform()
@@ -1307,14 +1482,15 @@ def run_fit_routes():
             torch.cuda.empty_cache()
         return out
 
-    out, counts = counted_run("3 controllers + 3 retrains", routes)
+    n = len(FIT_ROUTES)
+    out, counts = counted_run(f"{n} controllers + {n} retrains", routes)
     # Each controller's reset pool launches K1; the fits launch no kernel.
-    if counts != {"K1": 3 * 920, "K2": 0}:
-        raise AssertionError(f"phase 14 launched {counts}, expected K1 only in the 3 "
-                             f"reset pools (2760) and K2 never")
+    if counts != {"K1": n * 920, "K2": 0}:
+        raise AssertionError(f"phase 14 launched {counts}, expected K1 only in the {n} "
+                             f"reset pools ({n * 920}) and K2 never")
     for name, (logs, steps, _) in out.items():
         total, m = logs["t_fit_total"], len(steps)
-        lockstep = name != "--sequential_member_training"
+        lockstep = "--sequential_member_training" not in name
         line = (f"   {name}: t_fit_total {total:.4f} s, member steps {steps}, epochs "
                 f"{logs['epochs']}, val_loss {logs['val_loss']:.6f}; "
                 f"{total / sum(steps):.4f} s per member-step")
@@ -1325,9 +1501,10 @@ def run_fit_routes():
                      f"were of members already stopped")
         if "t_fit_capture" in logs:
             net = total - logs["t_fit_capture"]
+            per = (f"{net / max(steps):.4f} s per lock-step step" if lockstep
+                   else f"{net / sum(steps):.4f} s per member-step")
             line += (f"; captures {logs['t_fit_capture']:.4f} s, pool "
-                     f"+{logs['fit_graph_pool_mb']:.1f} MB, {net / max(steps):.4f} s per "
-                     f"lock-step step without them")
+                     f"+{logs['fit_graph_pool_mb']:.1f} MB, {per} without them")
         print(line + f"; {json.dumps({k: v for k, v in logs.items() if k.startswith('t_')})}",
               flush=True)
     (glogs, gsteps, gstate), (elogs, esteps, estate) = out["default"], out["--no_fuse_fit"]
@@ -1342,6 +1519,18 @@ def run_fit_routes():
         raise AssertionError(f"the graphed fit differs from the eager one in {differ}")
     print(f"   default (graphed) and --no_fuse_fit equal: parameters, Adam state, "
           f"global steps, val losses {glogs['elite_scores']}", flush=True)
+    (slogs, ssteps, sstate), (qlogs, qsteps, qstate) = (
+        out["--sequential_member_training"],
+        out["--sequential_member_training --no_fuse_fit"])
+    if "t_fit_capture" not in slogs or "t_fit_capture" in qlogs:
+        raise AssertionError(f"the sequential routes' fields: {sorted(slogs)}, {sorted(qlogs)}")
+    differ = [k for k in sstate if not torch.equal(sstate[k], qstate[k])]
+    differ += [k for k in ("val_loss", "elite_scores", "train_loss", "steps", "epochs")
+               if slogs[k] != qlogs[k]]
+    if differ or ssteps != qsteps:
+        raise AssertionError(f"the graphed sequential fit differs from its eager run in {differ}")
+    print(f"   sequential graphed and eager equal: parameters, Adam state, global steps, "
+          f"val losses {slogs['elite_scores']}", flush=True)
 
 
 def run_native(k1_timings):
@@ -1586,10 +1775,14 @@ def main() -> int:
     done("2 K1 against the plain version", t0)
 
     t0 = phase("3 main path (float32, K1)")
+    torch.cuda.reset_peak_memory_stats()
     k1_counts = run_mbpo(MAIN_ARGS, RUN_DIR, ("K1",))
     if k1_counts["K1"] != MAIN_K1_LAUNCHES:
         raise AssertionError(f"the main path launched K1 {k1_counts['K1']} times, "
                              f"expected {MAIN_K1_LAUNCHES}")
+    print_retrains(RUN_DIR)
+    print(f"   peak allocated {torch.cuda.max_memory_allocated() / 1e6:.1f} MB, reserved "
+          f"{torch.cuda.memory_reserved() / 1e6:.1f} MB after the path", flush=True)
     done("3 main path (float32, K1)", t0)
 
     t0 = phase("4 K2 against the plain version")
@@ -1598,6 +1791,7 @@ def main() -> int:
     done("4 K2 against the plain version", t0)
 
     t0 = phase("5 attractor gate")
+    gate_routes()
     run_gate()
     done("5 attractor gate", t0)
 
@@ -1607,6 +1801,7 @@ def main() -> int:
 
     t0 = phase("7 SAC baseline CLI (K2)")
     run_sac()
+    sac_routes()
     done("7 SAC baseline CLI (K2)", t0)
 
     t0 = phase("8 restart (resume the main path)")

@@ -2,8 +2,9 @@
 ``pdecontrol/mbrl/types.py``).
 
 ``Sample`` holds a (possibly batched, time-majored) transition record;
-``ModelRollout`` holds surrogate rollout products.  Plain dataclasses of
-tensors: ``apply`` maps a function over the set fields.
+``ModelRollout`` holds surrogate rollout products; ``TrainBatch`` a windowed
+batch with a validity mask.  Plain dataclasses of tensors: ``apply`` maps a
+function over the set fields.
 """
 
 from __future__ import annotations
@@ -53,3 +54,11 @@ class ModelRollout:
     outlatents: Optional[torch.Tensor] = None
     deltas: Optional[torch.Tensor] = None  # decoded per-step deltas (pre-scaling)
     hidden: Any = None  # transition-model carry
+
+
+@dataclasses.dataclass
+class TrainBatch:
+    """Fixed-shape windowed training batch with a validity mask along time."""
+
+    sample: Optional[Sample] = None
+    mask: Optional[torch.Tensor] = None  # [B, T] 1.0 where the window is valid

@@ -15,6 +15,14 @@ and compares
 - the energy spectrum ``<|rfft(u)|^2>`` on the wavenumbers carrying at least
   1e-4 of the peak power.
 
+Each period's statistics are written into buffers of ``--periods`` rows at
+an index kept on the device, and reduced once at the end, as the JAX gate
+reduces its scan's outputs.  On the card one period is a CUDA graph
+(``utils/graphs.py``), captured after the first period, which runs
+eagerly, and replayed for every later one; the transient's periods are a
+graph of their own.  The float32 side keeps the plain solver's operations,
+about 13,000 small launches a period, which the graph replays as one.
+
 Exit status 0 means within tolerance; the verdict JSON goes to stdout and,
 with ``--output``, to a file.  It runs on the GPU, and stops if there is
 none, unless ``--platform cpu`` asks for the CPU (the defaults are the JAX
@@ -37,36 +45,52 @@ from pdecontrol_tpu_torch.envs.kuramoto import EnvState, KuramotoSivashinsky
 from pdecontrol_tpu_torch.ops.kuramoto import ks_derivatives
 from pdecontrol_tpu_torch.utils.device import (
     add_platform_argument, entry_device, platform_device)
+from pdecontrol_tpu_torch.utils.graphs import GraphCache, copy_into
 
 
 @torch.no_grad()
 def rollout_stats_from(env: KuramotoSivashinsky, u0: torch.Tensor, transient: int,
-                       periods: int) -> Dict:
+                       periods: int, graphs: bool = True) -> Dict:
     """Free-attractor rollout of the batch ``u0`` [B, N] through
     ``env.step`` (zero action); attractor statistics over ``periods``
-    post-transient control periods."""
+    post-transient control periods.  On the card each period replays a CUDA
+    graph unless ``graphs`` is false; the statistics are the same."""
     batch = u0.shape[0]
     dev = u0.device
-    state = EnvState(u=u0.to(torch.float32),
+    state = EnvState(u=u0.to(torch.float32).clone(),
                      step=torch.zeros((batch,), dtype=torch.int32, device=dev))
     actions = torch.zeros((batch, 1, env.num_jets), dtype=torch.float32, device=dev)
-    for _ in range(transient):
-        state, _ = env.step(state, actions)
-    energy, ux2, uxx2, spec = [], [], [], []
-    for _ in range(periods):
-        state, _ = env.step(state, actions)
+    # Per period: <u^2>, <u_x^2>, <u_xx^2> and the spectrum, at row ``index``.
+    means = torch.zeros((3, periods), dtype=torch.float32, device=dev)
+    spec = torch.zeros((periods, env.n // 2 + 1), dtype=torch.float32, device=dev)
+    index = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+    def period():
+        stepped, _ = env.step(state, actions)
+        copy_into(state, stepped)
+
+    def recorded():
+        period()
         u = state.u
         u_x, u_xx, _ = ks_derivatives(env.ops, u)
-        energy.append(torch.mean(u * u))
-        ux2.append(torch.mean(u_x * u_x))
-        uxx2.append(torch.mean(u_xx * u_xx))
-        spec.append(torch.mean(torch.abs(torch.fft.rfft(u, dim=-1)) ** 2, dim=0))
-    means = torch.stack([torch.stack(v).mean() for v in (energy, ux2, uxx2)]).tolist()
+        row = torch.stack([torch.mean(u * u), torch.mean(u_x * u_x), torch.mean(u_xx * u_xx)])
+        means.index_copy_(1, index, row[:, None])
+        spec.index_copy_(0, index, torch.mean(torch.abs(torch.fft.rfft(u, dim=-1)) ** 2,
+                                              dim=0)[None])
+        index.add_(1)
+
+    cache = GraphCache([]) if graphs and dev.type == "cuda" else None
+    for key, body, count in (("transient", period, transient), ("period", recorded, periods)):
+        for _ in range(count):
+            if cache is None:
+                body()
+            else:
+                cache.run(key, body, lambda: [state.u, state.step, means, spec, index],
+                          f"the gate's {env.solver}/{env.pallas_precision} {key}")
     return {
-        "mean_energy": means[0],
-        "mean_ux2": means[1],
-        "mean_uxx2": means[2],
-        "spectrum": torch.stack(spec).mean(0).cpu().numpy(),
+        **dict(zip(("mean_energy", "mean_ux2", "mean_uxx2"),
+                   torch.stack([m.mean() for m in means]).tolist())),
+        "spectrum": spec.mean(0).cpu().numpy(),
     }
 
 

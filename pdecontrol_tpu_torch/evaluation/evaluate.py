@@ -12,7 +12,9 @@ fold at a ``--target_length``-step open-loop horizon.  Results are written
 as ``.npz`` + a JSON summary per fold.  ``--store`` also writes the trained
 member as ``fold{k}_model.pt``: ``torch.save`` of its ``state_dict``, the
 tensors of the two scalings and the factory's name (the JAX package pickles
-its flax trees).  It runs on the GPU, and stops if there is none, unless
+its flax trees).  On the card each fold's TBPTT and validation steps
+replay CUDA graphs (``SurrogateTrainer.fit``), drawn from the fold's own
+generator.  It runs on the GPU, and stops if there is none, unless
 ``--platform cpu`` asks for the CPU.
 
     python -m pdecontrol_tpu_torch.evaluation.evaluate \\
@@ -44,6 +46,7 @@ from pdecontrol_tpu_torch.train.metrics import surrogate_metric_battery
 from pdecontrol_tpu_torch.train.schedulers import ConstantLengthScheduler, Scheduler
 from pdecontrol_tpu_torch.train.trainer import SurrogateTrainer, TrainConfig
 from pdecontrol_tpu_torch.utils.checkpoint import tensor_fields, to_host
+from pdecontrol_tpu_torch.utils.graphs import GraphCache
 from pdecontrol_tpu_torch.utils.device import (
     add_platform_argument, entry_device, platform_device)
 
@@ -101,7 +104,9 @@ def kfold_indices(n: int, splits: int, seed: int):
 
 
 def run_fold(args, data: Dict[str, np.ndarray], train_idx, val_idx, test_idx,
-             fold: int, device: Optional[torch.device] = None) -> Dict:
+             fold: int, device: Optional[torch.device] = None, graphs: bool = True) -> Dict:
+    """One fold: fit the surrogate and run the battery on the held-out
+    episodes.  ``graphs=False`` fits eagerly on the card too."""
     from pdecontrol_tpu_torch.mbrl.controller import ENVS
 
     dev = entry_device(device)
@@ -169,6 +174,8 @@ def run_fold(args, data: Dict[str, np.ndarray], train_idx, val_idx, test_idx,
     module = factories.make(args.factory, delta=delta,
                             **{**env.scenario, **json.loads(args.model)}).to(dev)
     trainer = SurrogateTrainer(make_loss(args.loss, env.scenario), tc)
+    if dev.type == "cuda" and graphs:
+        trainer.graphs = GraphCache([gen])
     tstate = trainer.init(module)
 
     curriculum = make_curriculum(args.curriculum, args.target_length)
@@ -220,26 +227,30 @@ def run_fold(args, data: Dict[str, np.ndarray], train_idx, val_idx, test_idx,
     return result
 
 
+def fold_splits(args, episodes: int):
+    """The folds' (train, val, test) episode indices.  The data budget
+    restricts the FOLD INDICES, not the array shapes: the dense replay keeps
+    every episode and the train/val/test row masks select among the first
+    ``--total`` fraction, as in the JAX package."""
+    folds = kfold_indices(math.ceil(args.total * episodes), args.splits, args.seed)
+    if args.max_folds:
+        folds = folds[: args.max_folds]
+    for train_idx, test_idx in folds:
+        train_size = math.ceil((1.0 - args.val) * len(train_idx))
+        train_idx, val_idx = train_idx[:train_size], train_idx[train_size:]
+        if len(val_idx) == 0:
+            val_idx = train_idx[-1:]
+        yield train_idx, val_idx, test_idx
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     dev = entry_device(platform_device(args.platform))
 
     data = dict(np.load(args.data))
-    episodes = data["obs"].shape[0]
-    n_used = math.ceil(args.total * episodes)
-    # The data budget restricts the FOLD INDICES, not the array shapes: the
-    # dense replay keeps every episode and the train/val/test row masks
-    # select among the first n_used, as in the JAX package.
-    folds = kfold_indices(n_used, args.splits, args.seed)
-    if args.max_folds:
-        folds = folds[: args.max_folds]
-
     results = []
-    for fold, (train_idx, test_idx) in enumerate(folds):
-        train_size = math.ceil((1.0 - args.val) * len(train_idx))
-        train_idx, val_idx = train_idx[:train_size], train_idx[train_size:]
-        if len(val_idx) == 0:
-            val_idx = train_idx[-1:]
+    for fold, (train_idx, val_idx, test_idx) in enumerate(
+            fold_splits(args, data["obs"].shape[0])):
         res = run_fold(args, data, train_idx, val_idx, test_idx, fold, device=dev)
         results.append(res)
         print(json.dumps(res), flush=True)

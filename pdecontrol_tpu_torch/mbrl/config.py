@@ -33,9 +33,10 @@ class MBPOConfig:
     # SAC) into one program and a whole surrogate fit into one on-device
     # loop.  The port runs the fused iteration as one CUDA graph per horizon,
     # captured at that horizon's first non-retrain iteration (so it has no
-    # precompile ladder: precompile_horizons changes nothing), and, with
-    # fuse_fit, the lock-step fit's TBPTT and validation steps as CUDA
-    # graphs replayed every epoch (fuse_fit=False: the same fit, eagerly).
+    # precompile ladder: precompile_horizons changes nothing), the phases of
+    # the other iterations as one graph each, and, with fuse_fit, the fit's
+    # TBPTT and validation steps as CUDA graphs replayed every epoch
+    # (fuse_fit=False: the same fit, eagerly).
     fuse_iteration: bool = True
     fuse_fit: bool = True
     precompile_horizons: bool = True

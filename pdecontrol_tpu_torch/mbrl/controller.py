@@ -31,13 +31,24 @@ body (``_fused_body``, the counterpart of the JAX package's
 captures the body as a CUDA graph (``utils/graphs.py``) and every later one
 replays it; on the CPU the body runs eagerly.  Its record is pulled one
 iteration late (``t_dispatch``, then ``t_ready`` when the next iteration
-commits it), or at once on an evaluation iteration (``t_fused``); retrain
-iterations run the phases eagerly without a synchronisation between them.
-The body writes the controller's state in place, in both modes, since a
-graph reads and writes fixed addresses.  ``--no_fuse_iteration`` (and
-``--debug_nans``, whose checks wait for the device) runs every iteration's
-phases eagerly, each ending in a device synchronisation before its ``t_*``
-timer stops, so that those timings are honest wall times.
+commits it), or at once on an evaluation iteration (``t_fused``).  A
+retrain iteration runs the phases one after another without a
+synchronisation between them, and ``--no_fuse_iteration`` runs every
+iteration so, each phase ending in a device synchronisation before its
+``t_*`` timer stops, so that those timings are honest wall times.  On the
+card each phase is a CUDA graph there too, as the JAX package runs its
+per-phase programs: ``collect`` keyed as ``_collect_jit`` (steps, random),
+``imagine`` as ``_world_jit`` (horizon, rounds) and ``update_policy`` as
+``_policy_jit`` (updates), as are the evaluations (``evaluate_policy`` by
+its episodes' length and count, ``surrogate_rollout`` by its horizon, as
+``_sur_eval_jit``).  The first call of a key runs eagerly and the capture
+follows it; the record of the iteration carries the captures made since
+the previous record (``t_capture``, ``graph_pool_mb``).  The random warmup
+runs eagerly: it runs once.  Every body writes the controller's state in
+place, in both modes, since a graph reads and writes fixed addresses.  The
+phases run eagerly on the CPU, under ``--debug_nans`` (whose checks wait
+for the device), under a mesh, and in a controller built with
+``graphs=False``.
 
 A resumed run repeats neither the random warmup nor the initial policy
 evaluation (the JAX package repeats both, ``controller.py:1255-1266``): its
@@ -149,7 +160,10 @@ def mesh_for(cfg: MBPOConfig) -> Optional[meshlib.Mesh]:
 
 class PDEModelBasedController:
     def __init__(self, config: MBPOConfig, logger: Optional[MetricsLogger] = None,
-                 device: Optional[torch.device] = None, debug_nans: bool = False):
+                 device: Optional[torch.device] = None, debug_nans: bool = False,
+                 graphs: bool = True):
+        """``graphs=False`` runs every phase and the fit eagerly on the card
+        too (the routes' reference)."""
         check_ported(config)
         self.config = cfg = config
         self.mesh = mesh_for(cfg)
@@ -303,15 +317,19 @@ class PDEModelBasedController:
         self._start_time = time.time()
         self.throughput = profiling.Throughput()
         self.gc_monitor = profiling.GCMonitor()
-        # The fused iteration: its graphs on the card, the record awaiting
-        # its pull, and whether an iteration ran eagerly in this process
-        # (which a capture needs first: it loads every kernel and sets up
-        # every library handle and optimizer state the body touches).
-        self.graphs = GraphCache([self.gen]) if dev.type == "cuda" and graphed else None
+        # The graphs of the fused iteration, the phases and the fit on the
+        # card, the record awaiting its pull, and whether an iteration ran
+        # eagerly in this process (which a capture of the fused iteration
+        # needs first: it loads every kernel and sets up every library
+        # handle and optimizer state the body touches).
+        self.graphs = (GraphCache([self.gen]) if dev.type == "cuda" and graphed and graphs
+                       else None)
         self.trainer.fuse_fit = cfg.fuse_fit and graphed
         self.trainer.graphs = self.graphs if self.trainer.fuse_fit else None
         self._capture_log: Dict[str, float] = {}
         self._pending_log = None
+        # surrogate_rollout's replay row and start, written before each call.
+        self._sur_index = torch.zeros((2,), dtype=torch.int64, device=dev)
         self._warm = False
 
         # Checkpoint / resume.
@@ -380,13 +398,23 @@ class PDEModelBasedController:
             return tensors
         return tuple(self.mesh.gather(tensors, meshlib.DATA_AXIS))
 
-    @torch.no_grad()
     def collect(self, nsteps: int, random: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (per-step rewards [nsteps, B], their mean); the env state
         and the obs scaling are updated in place.  Under a mesh a rank steps
         its envs, and the actions, the replay writes and the scaling see the
-        whole batch."""
+        whole batch.  The random warmup runs eagerly; the policy's steps
+        replay a graph on the card."""
+        if random:
+            return self._collect_body(nsteps, random)
+        return self._phase(("collect", nsteps, random), "collect",
+                           lambda: self._collect_body(nsteps, random),
+                           lambda: tensors_of(self.env_state, self.tr, self.pool, self.replay,
+                                              self.sac_state.policy))
+
+    @torch.no_grad()
+    def _collect_body(self, nsteps: int, random: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         env, tr, state = self.env, self.tr, self.env_state
         rewards = []
         (raw_obs,) = self._data(env.observe(state))
@@ -492,6 +520,7 @@ class PDEModelBasedController:
             # member's fit logs, as the JAX package's does, and the timers
             # of all of them.
             scores, timers = [], {"t_fit_train": 0.0, "t_fit_val": 0.0}
+            captures = {"t_fit_capture": 0.0, "fit_graph_pool_mb": 0.0}
             for i in range(self.fit_state.num_members):
                 _, val_loss, logs = self.trainer.fit(
                     self.fit_state.member(i), *fit_args, min_steps=tc.min_steps,
@@ -500,7 +529,11 @@ class PDEModelBasedController:
                 scores.append(val_loss)
                 for k in timers:
                     timers[k] += logs[k]
+                for k in captures:
+                    captures[k] += logs.get(k, 0.0)
             logs.update({k: round(v, 4) for k, v in timers.items()})
+            # The members share the one-member fit's graphs.
+            logs.update({k: round(v, 4) for k, v in captures.items() if v})
         logs["t_fit_total"] = round(time.perf_counter() - t_fit0, 4)
         t_post0 = time.perf_counter()
         self.ensemble.elite_mask.copy_(update_elites(
@@ -557,7 +590,6 @@ class PDEModelBasedController:
             self.viz.submit(job)
 
     # -------------------------------------------------------- world rollouts
-    @torch.no_grad()
     def imagine(self, horizon: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Imagined rollouts in batches of ``model_rollouts_batch_size`` from
         replay starting states; returns (rewards [rounds*horizon, B], mean).
@@ -565,6 +597,13 @@ class PDEModelBasedController:
         not needed and the world step draws no reset there.  Under a mesh a
         rank rolls out its share of the batch, and the actions and the
         replay writes see the whole batch."""
+        return self._phase(("world", horizon, self.world_rounds), "imagine",
+                           lambda: self._imagine_body(horizon),
+                           lambda: tensors_of(self.tr, self.replay, self.world_replay,
+                                              self.ensemble, self.sac_state.policy))
+
+    @torch.no_grad()
+    def _imagine_body(self, horizon: int) -> Tuple[torch.Tensor, torch.Tensor]:
         tr, world, ens = self.tr, self.world, self.ensemble
         rows = slice(None) if world.rows is None else world.rows
         rewards = []
@@ -591,6 +630,19 @@ class PDEModelBasedController:
 
     # --------------------------------------------------------- policy update
     def update_policy(self) -> Dict[str, torch.Tensor]:
+        """``num_pol_updates_per_iteration`` SAC updates on mixed batches;
+        returns the last update's metrics.  A graph holds the pattern of
+        target updates of the chain it captured, so where the chain's length
+        is not a multiple of ``target_update_interval`` the chain's offset
+        keys it too."""
+        n = self.num_pol_updates_per_iteration
+        interval = self.config.target_update_interval
+        key = ("policy", n) + ((self.sac_state.updates % interval,) if n % interval else ())
+        return self._phase(key, "update_policy", self._policy_body,
+                           lambda: tensors_of(self.tr, self.replay, self.world_replay,
+                                              self.sac_state))
+
+    def _policy_body(self) -> Dict[str, torch.Tensor]:
         n = self.num_pol_updates_per_iteration
         bs = self.config.policy_batch_size
         tr = self.tr
@@ -626,10 +678,22 @@ class PDEModelBasedController:
         """Deterministic episodes on fresh envs with frozen scaling
         (mbrl.py:462-465); the episodes' trajectories go to an npz artifact
         (mbrl.py:467-472)."""
+        n, steps = self.config.num_eval_episodes, self.env.max_episode_steps
+        obs, actions, rewards, stats = self._phase(
+            ("eval", steps, n), "evaluate_policy", lambda: self._eval_body(n, steps),
+            lambda: tensors_of(self.tr, self.pool, self.sac_state.policy))
+        self._save_eval_artifact(obs, actions, rewards)
+        mean, std = stats.tolist()
+        return {"eval_return_mean": mean, "eval_return_std": std}
+
+    @torch.no_grad()
+    def _eval_body(self, n: int, steps: int) -> Tuple[torch.Tensor, ...]:
+        """The evaluation's episodes: (obs [T, n, ...], env actions, rewards
+        [T, n], and the returns' mean and std)."""
         env, tr = self.env, self.tr
-        state = env.reset_from_pool(self.gen, self.pool, (self.config.num_eval_episodes,))
+        state = env.reset_from_pool(self.gen, self.pool, (n,))
         obs_seq, actions, rewards = [], [], []
-        for _ in range(env.max_episode_steps):
+        for _ in range(steps):
             raw = env.observe(state)
             action = self.sac.select_action(self.sac_state, tr.raw_to_agent_obs(raw),
                                             self.gen, deterministic=True)
@@ -639,24 +703,27 @@ class PDEModelBasedController:
             actions.append(env_action)
             rewards.append(out.reward)
         rewards = torch.stack(rewards)
-        self._save_eval_artifact(obs_seq, actions, rewards)
         returns = rewards.sum(0)
-        mean, std = torch.stack([returns.mean(), returns.std(correction=0)]).tolist()
-        return {"eval_return_mean": mean, "eval_return_std": std}
+        return (torch.stack(obs_seq), torch.stack(actions), rewards,
+                torch.stack([returns.mean(), returns.std(correction=0)]))
 
     @torch.no_grad()
-    def surrogate_rollout(self, row: int, start: int, horizon: int
-                          ) -> Dict[str, torch.Tensor]:
+    def surrogate_rollout(self, row, start, horizon: int) -> Dict[str, torch.Tensor]:
         """Open-loop rollout of the logged actions of replay row ``row`` from
-        step ``start`` (the JAX package's ``_sur_eval_fn``): a tau-step
-        teacher-forced warm start (mbrl.py:484-496), then the episode's own
-        actions for ``horizon`` steps (``ActionRepeatAgent``,
-        mbrl.py:498-506).  Returns ``err`` (MSE in world space), ``hstep``
-        (the MSE per horizon step), ``reward_err`` (imagined-vs-true reward
-        L1 error), ``truth`` and ``preds`` [h, C, Hw], the world-space
-        ``actions`` and the reward curves ``rtrue`` and ``rpred``."""
+        step ``start`` (the JAX package's ``_sur_eval_fn``, which takes both
+        traced): a tau-step teacher-forced warm start (mbrl.py:484-496),
+        then the episode's own actions for ``horizon`` steps
+        (``ActionRepeatAgent``, mbrl.py:498-506).  ``row`` and ``start`` are
+        0-d integer tensors on the controller's device (or ints).  Returns
+        ``err`` (MSE in world space), ``hstep`` (the MSE per horizon step),
+        ``reward_err`` (imagined-vs-true reward L1 error), ``truth`` and
+        ``preds`` [h, C, Hw], the world-space ``actions`` and the reward
+        curves ``rtrue`` and ``rpred``."""
         tau, tr, world, rp = self.tau, self.tr, self.world, self.replay
-        idx = start + torch.arange(tau + horizon, device=self.device)
+        # A 1-element index: indexing by a 0-d tensor reads it on the host.
+        row = torch.as_tensor(row, device=self.device).reshape(1)
+        idx = torch.as_tensor(start, device=self.device) + torch.arange(
+            tau + horizon, device=self.device)
         sample = Sample(
             obs=rp.obs_seq[row, idx][None],
             actions=rp.actions[row, idx][None],
@@ -713,8 +780,12 @@ class PDEModelBasedController:
         hi = max(int(fill[row]) - tau - horizon, 1)
         start = min(int(u[1] * hi), hi - 1)
 
-        out = {k: _to_numpy(v) for k, v in
-               self.surrogate_rollout(row, start, horizon).items()}
+        index = self._sur_index
+        index.copy_(torch.tensor([row, start], dtype=index.dtype))
+        out = self._phase(("sur_eval", horizon), "surrogate_rollout",
+                          lambda: self.surrogate_rollout(index[0], index[1], horizon),
+                          lambda: tensors_of(self.tr, self.replay, self.ensemble, index))
+        out = {k: _to_numpy(v) for k, v in out.items()}
         self._save_plots(out)
         self._save_surrogate_artifact(out)
         return {"surrogate_open_loop_mse": float(out["err"]),
@@ -763,7 +834,8 @@ class PDEModelBasedController:
 
         self.viz.submit(job)
 
-    def _save_eval_artifact(self, obs, actions, rewards: torch.Tensor) -> None:
+    def _save_eval_artifact(self, obs: torch.Tensor, actions: torch.Tensor,
+                            rewards: torch.Tensor) -> None:
         """Eval-episode trajectories as an npz artifact (mbrl.py:467-472),
         [T, B, ...] -> [B, T, ...]: episode-major like the reference dataset."""
         if self.config.logging_freq <= 0:
@@ -771,8 +843,8 @@ class PDEModelBasedController:
         d = os.path.join(self.config.run_dir, "evaluation")
         iteration = self.iteration
         arrays = {
-            "obs": _to_numpy(torch.stack(obs)),
-            "actions": _to_numpy(torch.stack(actions)),
+            "obs": _to_numpy(obs),
+            "actions": _to_numpy(actions),
             "rewards": _to_numpy(rewards),
         }
 
@@ -869,13 +941,13 @@ class PDEModelBasedController:
         SAC updates, and the packed log scalars (the JAX package's
         ``_fused_iteration_fn``).  It changes the controller's state only in
         place, so that a CUDA graph of it replays onto the same tensors."""
-        self._phase = "collect"
-        _, collect_rmean = self.collect(nsteps)
-        self._phase = "imagine"
-        _, imag_rmean = self.imagine(horizon)
-        self._phase = "policy"
-        metrics = self.update_policy()
-        self._phase = "pack"
+        self._fused_phase = "collect"
+        _, collect_rmean = self._collect_body(nsteps, False)
+        self._fused_phase = "imagine"
+        _, imag_rmean = self._imagine_body(horizon)
+        self._fused_phase = "policy"
+        metrics = self._policy_body()
+        self._fused_phase = "pack"
         return self._pack_scalars(collect_rmean, imag_rmean, metrics)
 
     def _pack_scalars(self, collect_rmean, imag_rmean, metrics) -> torch.Tensor:
@@ -891,6 +963,32 @@ class PDEModelBasedController:
         return tensors_of(self.env_state, self.tr, self.pool, self.replay,
                           self.world_replay, self.ensemble, self.sac_state)
 
+    def _phase(self, key, what: str, body, state):
+        """A phase's ``body``, eagerly, or on the card through its CUDA graph
+        under ``key`` (``GraphCache.run``: the first call of a key runs
+        eagerly and captures after it; a replay returns a copy of the
+        graph's output, which outlives the other graphs' replays).
+        ``state`` gives the tensors the body reads and writes."""
+        if self.graphs is None:
+            return body()
+        captured = []
+        out = self.graphs.run(
+            key, body, state, f"the {what} phase",
+            counters=((self, "num_pol_updates"), (self.sac_state, "updates")),
+            captured=captured)
+        for graph in captured:
+            self._note_capture(f"the {what} phase {key}", graph)
+        return out
+
+    def _note_capture(self, what: str, graph) -> None:
+        """Add a capture to the next record's ``t_capture`` and
+        ``graph_pool_mb``."""
+        log = self._capture_log
+        log["t_capture"] = round(log.get("t_capture", 0.0) + graph.seconds, 4)
+        log["graph_pool_mb"] = round(log.get("graph_pool_mb", 0.0) + graph.pool_bytes / 1e6, 3)
+        print(f"[graphs] captured {what} in {graph.seconds:.2f} s; the shared pool grew "
+              f"by {graph.pool_bytes / 1e6:.1f} MB", flush=True)
+
     def _prepare_graph(self) -> None:
         """Capture this iteration's graph if it replays one not yet captured.
         A capture runs the body's host code once and launches nothing: the
@@ -901,19 +999,16 @@ class PDEModelBasedController:
                 or self.graphs.get(key) is not None):
             return
         counters = (self.num_pol_updates, self.sac_state.updates)
-        self._phase = None
+        self._fused_phase = None
         try:
             graph = self.graphs.capture(key, lambda: self._fused_body(key[0], key[1]),
                                         self._graph_state())
         except Exception as e:
             raise RuntimeError(f"capturing the fused iteration {key} as a CUDA graph "
-                               f"failed in its {self._phase} phase: {e}") from e
+                               f"failed in its {self._fused_phase} phase: {e}") from e
         finally:
             self.num_pol_updates, self.sac_state.updates = counters
-        self._capture_log = {"t_capture": round(graph.seconds, 4),
-                             "graph_pool_mb": round(graph.pool_bytes / 1e6, 3)}
-        print(f"[graphs] captured the fused iteration {key} in {graph.seconds:.2f} s; "
-              f"the shared pool grew by {graph.pool_bytes / 1e6:.1f} MB", flush=True)
+        self._note_capture(f"the fused iteration {key}", graph)
 
     def _dispatch(self, key) -> torch.Tensor:
         """Run this iteration's fused body: replay its graph on the card, or
@@ -990,8 +1085,7 @@ class PDEModelBasedController:
         horizon = int(self.schedule(iteration=self.iteration))
         key = self._fused_key()
         self._prepare_graph()
-        timings: Dict[str, float] = dict(self._capture_log)
-        self._capture_log = {}
+        timings: Dict[str, float] = {}
         t = time.perf_counter()
 
         if key is not None:
@@ -1006,6 +1100,7 @@ class PDEModelBasedController:
                     "horizon": horizon,
                     "num_pol_updates": self.num_pol_updates,
                     **timings,
+                    **self._take_captures(),
                     "time": time.time() - self._start_time,
                 }
                 self._flush_pending_log()
@@ -1069,6 +1164,11 @@ class PDEModelBasedController:
             "horizon": horizon,
             "num_pol_updates": self.num_pol_updates,
             **timings,
+            **self._take_captures(),
             "time": time.time() - self._start_time,
         }, pulled)
         self.iteration += 1
+
+    def _take_captures(self) -> Dict[str, float]:
+        log, self._capture_log = self._capture_log, {}
+        return log

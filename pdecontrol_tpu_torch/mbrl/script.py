@@ -25,15 +25,17 @@ By default an iteration that does not retrain runs as one body, on the GPU
 a CUDA graph captured at the first such iteration of each horizon and
 replayed from then on, and its metrics record is committed one iteration
 late (``t_dispatch``, ``t_ready``; ``t_fused`` on an evaluation iteration);
-``--no_fuse_iteration`` runs every iteration's phases eagerly, each timed
-after a device synchronisation (``t_collect``, ``t_imagine``, ``t_policy``,
-``t_pull``).  A retrain fits all ensemble members in lock-step, on the
-GPU each TBPTT step and each validation step a replayed CUDA graph, with
-one pull of the members' val losses per epoch (``t_fit_prep``,
-``t_fit_dispatch``, ``t_fit_ready``); ``--no_fuse_fit`` runs the same fit
-eagerly (``t_fit_val`` in place of ``t_fit_ready``), and
-``--sequential_member_training`` fits one member after another, its record
-carrying the last member's fit logs.  ``--checkpoint_freq N`` snapshots the whole
+a retrain iteration runs its phases one after another, on the GPU each a
+replayed CUDA graph, and so does every iteration under
+``--no_fuse_iteration``, each phase then timed after a device
+synchronisation (``t_collect``, ``t_imagine``, ``t_policy``, ``t_pull``).
+A retrain fits all ensemble members in lock-step, on the GPU each TBPTT
+step and each validation step a replayed CUDA graph, with one pull of the
+members' val losses per epoch (``t_fit_prep``, ``t_fit_dispatch``,
+``t_fit_ready``); ``--no_fuse_fit`` runs the fit eagerly (``t_fit_val`` in
+place of ``t_fit_ready``), and ``--sequential_member_training`` fits one
+member after another (each step a replayed graph unless ``--no_fuse_fit``),
+its record carrying the last member's fit logs.  ``--checkpoint_freq N`` snapshots the whole
 training state every N iterations into ``<run_dir>/checkpoints`` and
 ``--resume`` carries on from the last snapshot, appending to the same
 ``metrics.jsonl``; ``--profile_dir`` writes a ``torch.profiler`` trace of
@@ -103,12 +105,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of iteration 1 here")
     p.add_argument("--no_fuse_iteration", action="store_true",
-                   help="run every iteration's phases eagerly, each timed after a device "
-                        "synchronisation, in place of one CUDA graph per non-retrain "
-                        "iteration")
+                   help="run every iteration's phases one after another (on the GPU each "
+                        "its own CUDA graph), each timed after a device synchronisation, in "
+                        "place of one CUDA graph per non-retrain iteration")
     p.add_argument("--no_fuse_fit", action="store_true",
-                   help="run the lock-step surrogate fit eagerly, in place of its TBPTT "
-                        "and validation steps as CUDA graphs")
+                   help="run the surrogate fit eagerly (lock-step or one member after "
+                        "another), in place of its TBPTT and validation steps as CUDA graphs")
     # General
     p.add_argument("--total_timesteps", type=int, default=1_000_000)
     p.add_argument("--seed", type=int, default=0)

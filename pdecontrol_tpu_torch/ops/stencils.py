@@ -88,6 +88,34 @@ def circulant(taps: Mapping[int, float], n: int, dtype=np.float64) -> np.ndarray
     return mat.astype(dtype)
 
 
+def taps_to_kernel(taps: Mapping[int, float], width: int | None = None) -> np.ndarray:
+    """The taps as a dense centred correlation kernel."""
+    radius = max(abs(d) for d in taps)
+    if width is None:
+        width = 2 * radius + 1
+    center = width // 2
+    kernel = np.zeros(width, dtype=np.float64)
+    for d, c in taps.items():
+        kernel[center + d] = c
+    return kernel
+
+
+def apply_taps_numpy(u: np.ndarray, taps: Mapping[int, float]) -> np.ndarray:
+    """The periodic taps applied along the last axis through ``np.roll``
+    (the reference for the matrix and kernel forms)."""
+    out = np.zeros_like(u)
+    for d, c in taps.items():
+        out = out + c * np.roll(u, -d, axis=-1)
+    return out
+
+
+def derivative_matrix(
+    taps: Mapping[int, float], n: int, dx: float, order: int, dtype=np.float64
+) -> np.ndarray:
+    """The circulant matrix scaled by ``dx**-order`` (``convolve1d(...) / dx**k``)."""
+    return (circulant(taps, n, dtype=np.float64) / dx**order).astype(dtype)
+
+
 def stacked_matrix(
     taps_list: Sequence[Mapping[int, float]],
     n: int,

@@ -46,8 +46,11 @@ from typing import Dict, List, Optional, Sequence
 # batch), stages 2 and 3 are float64, where the mean of the ranks' gradients
 # rounds otherwise than the gradient of the whole batch.
 STAGE_TOL = {"collect": 1e-6, "train": 1e-9, "sac": 1e-9}
-# Record fields that read the host's clock or its garbage collector.
-TIMING = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2")
+# Record fields that read the host's clock or its garbage collector, or the
+# CUDA graphs' memory pool (the one-process run on the card captures graphs;
+# a mesh runs eagerly).
+TIMING = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2",
+          "graph_pool_mb", "fit_graph_pool_mb")
 
 
 def repo_root() -> str:

@@ -12,10 +12,15 @@ uniform replay batches; a policy evaluation every ``--eval_freq`` env steps.
         --learning_starts 5000 --num_envs 10 --updates_per_step 1 \\
         --env_config '{"solver": "pallas_packed", "pallas_precision": "bf16_3x"}'
 
-The JAX trainer fuses ``--chunk`` env steps into one jitted program; the
-port runs them as an eager loop, and ``--chunk`` is the number of env steps
-between two log records.  It runs on the GPU, and stops if there is none,
-unless ``--platform cpu`` asks for the CPU.
+``--chunk`` env steps, each with its SAC updates, are one program, as the
+JAX trainer's jitted chunk is: on the card a CUDA graph (``utils/graphs.py``)
+keyed as the JAX trainer's ``_chunk_jit`` (steps, random, updates per step),
+captured after the first chunk, which runs eagerly, and replayed for every
+later one; a log record follows each chunk.  The evaluation's episodes are a
+graph too, keyed by their length.  The random warmup runs once, eagerly.
+Under ``--debug_nans`` and on the CPU every chunk runs eagerly.  It runs on
+the GPU, and stops if there is none, unless ``--platform cpu`` asks for the
+CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from pdecontrol_tpu_torch.mbrl.transform_sets import ControllerTransforms
 from pdecontrol_tpu_torch.sac.sac import SAC, SACConfig
 from pdecontrol_tpu_torch.utils.device import (
     add_platform_argument, entry_device, platform_device)
+from pdecontrol_tpu_torch.utils.graphs import GraphCache, copy_into, tensors_of
 from pdecontrol_tpu_torch.utils.logging import MetricsLogger
 from pdecontrol_tpu_torch.utils.profiling import FiniteChecks
 
@@ -68,13 +74,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="eval every N env steps")
     p.add_argument("--num_eval_episodes", type=int, default=10)
     p.add_argument("--chunk", type=int, default=100,
-                   help="env steps between log records (the JAX trainer's jitted "
-                        "chunk; an eager loop here)")
+                   help="env steps fused per chunk (one CUDA graph on the GPU), and "
+                        "between log records")
     return p
 
 
 class SACTrainer:
-    def __init__(self, args: argparse.Namespace, device: Optional[torch.device] = None):
+    def __init__(self, args: argparse.Namespace, device: Optional[torch.device] = None,
+                 graphs: bool = True):
+        """``graphs=False`` runs every chunk and evaluation eagerly on the
+        card too (the graphs' reference)."""
         from pdecontrol_tpu_torch.mbrl.controller import ENVS
 
         self.args = args
@@ -110,6 +119,21 @@ class SACTrainer:
         self.tr = self.tr.replace(
             oscaling=self.tr.oscaling.update(self.env.observe(self.env_state))
         )
+        self.graphs = (GraphCache([self.gen])
+                       if dev.type == "cuda" and graphs and self.finite is None else None)
+
+    def _graph(self, key, what: str, body, state):
+        """``body`` eagerly, or on the card through its CUDA graph under
+        ``key`` (``GraphCache.run``)."""
+        if self.graphs is None:
+            return body()
+        captured = []
+        out = self.graphs.run(key, body, state, what,
+                              counters=((self.sac_state, "updates"),), captured=captured)
+        for g in captured:
+            print(f"[graphs] captured {what} {key} in {g.seconds:.2f} s; the shared pool "
+                  f"grew by {g.pool_bytes / 1e6:.1f} MB", flush=True)
+        return out
 
     def _batch(self) -> Sample:
         batch = self.tr.replay_to_agent(
@@ -120,50 +144,84 @@ class SACTrainer:
     def run_chunk(self, nsteps: int, random: bool, updates_per_step: int):
         """``nsteps`` env steps of all envs, each followed (unless ``random``)
         by ``updates_per_step`` SAC updates; returns (per-step rewards
-        [nsteps, num_envs], the last update's qf loss or 0)."""
+        [nsteps, num_envs], the last update's qf loss or 0).  The env state,
+        the obs scaling, the replay and the agent change in place.  A chunk
+        of the policy replays its CUDA graph on the card; the random warmup
+        runs eagerly."""
+        def body():
+            return self._chunk_body(nsteps, random, updates_per_step)
+
+        if random:
+            packed = body()
+        else:
+            packed = self._graph(
+                ("chunk", nsteps, random, updates_per_step), "the SAC baseline's chunk", body,
+                lambda: tensors_of(self.env_state, self.tr, self.pool, self.replay,
+                                   self.sac_state))
+        return packed[:-1].reshape(nsteps, -1), packed[-1]
+
+    def _chunk_body(self, nsteps: int, random: bool, updates_per_step: int) -> torch.Tensor:
+        """The chunk's per-step rewards and last qf loss as one vector."""
         env, sac = self.env, self.sac
+        state, tr = self.env_state, self.tr
         rewards = []
         qf = torch.zeros((), device=self.device)
         for _ in range(nsteps):
             with torch.no_grad():
-                raw_obs = env.observe(self.env_state)
+                raw_obs = env.observe(state)
                 if random:
                     action = self.random_agent.select_action(None, raw_obs, self.gen)
                 else:
                     action = sac.select_action(
-                        self.sac_state, self.tr.raw_to_agent_obs(raw_obs), self.gen)
-                env_action = self.tr.agent_to_env_action(action)
-                self.env_state, out = env.vec_step(self.env_state, env_action, self.pool)
+                        self.sac_state, tr.raw_to_agent_obs(raw_obs), self.gen)
+                env_action = tr.agent_to_env_action(action)
+                state, out = env.vec_step(state, env_action, self.pool)
                 if self.finite is not None:
                     self.finite("collect (env step)", field=out.info["final_obs"],
                                 reward=out.reward)
-                self.tr = self.tr.replace(oscaling=self.tr.oscaling.update(out.obs)
-                                          .update(out.info["final_obs"]))
+                tr = tr.replace(oscaling=tr.oscaling.update(out.obs)
+                                .update(out.info["final_obs"]))
                 R.write_step(self.replay, raw_obs, env_action, out.reward,
                              out.terminated, out.truncated, out.info["final_obs"],
                              out.info["step"])
             rewards.append(out.reward)
             if updates_per_step and not random:
+                # The updates' batches read the scaling of this step.
+                copy_into(self.tr.oscaling, tr.oscaling)
+                tr = self.tr
                 self.sac_state, m = sac.update_many(
                     self.sac_state, (self._batch() for _ in range(updates_per_step)),
                     self.gen)
                 qf = m["qf_loss"]
-        return torch.stack(rewards), qf
+        copy_into(self.env_state, state)
+        copy_into(self.tr.oscaling, tr.oscaling)
+        rewards = torch.stack(rewards)
+        return torch.cat([rewards.reshape(-1), qf.reshape(1).to(rewards.dtype)])
 
     @torch.no_grad()
     def evaluate(self) -> Dict[str, float]:
-        """Deterministic episodes from the pool (no auto-reset)."""
+        """Deterministic episodes from the pool (no auto-reset); on the card
+        a CUDA graph keyed by the episodes' length."""
+        steps = self.env.max_episode_steps
+        stats = self._graph(("evaluate", steps), "the SAC baseline's evaluation",
+                            lambda: self._evaluate_body(steps),
+                            lambda: tensors_of(self.tr, self.pool, self.sac_state.policy))
+        mean, std = stats.tolist()
+        return {"eval_return_mean": mean, "eval_return_std": std}
+
+    @torch.no_grad()
+    def _evaluate_body(self, steps: int) -> torch.Tensor:
+        """The returns' mean and std over ``num_eval_episodes`` episodes."""
         env, sac = self.env, self.sac
         state = env.reset_from_pool(self.gen, self.pool, (self.args.num_eval_episodes,))
         rewards = []
-        for _ in range(env.max_episode_steps):
+        for _ in range(steps):
             obs = self.tr.raw_to_agent_obs(env.observe(state))
             action = sac.select_action(self.sac_state, obs, self.gen, deterministic=True)
             state, out = env.step(state, self.tr.agent_to_env_action(action))
             rewards.append(out.reward)
         returns = torch.stack(rewards).sum(0)
-        mean, std = torch.stack([returns.mean(), returns.std(correction=0)]).tolist()
-        return {"eval_return_mean": mean, "eval_return_std": std}
+        return torch.stack([returns.mean(), returns.std(correction=0)])
 
     def learn(self, logger: MetricsLogger) -> None:
         args = self.args

@@ -16,7 +16,12 @@ pytorch-lightning).
     ``tau + K(curriculum)`` from the replay, one optimizer step per batch,
     then one validation batch; early stopping on the val loss with patience,
     bounded by min/max optimizer steps.  It trains one member, and serves
-    the offline evaluation and ``--sequential_member_training``.
+    the offline evaluation and ``--sequential_member_training``.  The
+    member's state is copied into the trainer's one-member slot, which
+    trains at fixed addresses whichever member it holds, and back at the
+    end.  With ``graphs`` set each TBPTT step and each validation step
+    replay a CUDA graph (the JAX package's jitted ``_epoch_fn``), and every
+    epoch ends in one pull of its last train loss and its val losses.
   * ``fit_ensemble`` trains every member in lock-step (the JAX package's
     vmapped ``fit_ensemble``): one step draws a batch for every member and
     takes each member's own gradient with ``torch.func.vmap`` over
@@ -42,6 +47,7 @@ pytorch-lightning).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import time
@@ -60,7 +66,7 @@ from pdecontrol_tpu_torch.models.surrogate import (
     stack_parameters,
 )
 from pdecontrol_tpu_torch.parallel.mesh import MODEL_AXIS
-from pdecontrol_tpu_torch.utils.graphs import tensors_of
+from pdecontrol_tpu_torch.utils.graphs import copy_into, tensors_of
 
 # optax.scale_by_adam's defaults.
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -193,6 +199,9 @@ class SurrogateTrainer:
         self.graphs = None
         self.mesh = None
         self._inputs: Optional[FitInputs] = None
+        # The one-member fit's slot and inputs (``_one_member``).
+        self._slot: Optional[TrainerState] = None
+        self._one_inputs: Optional[FitInputs] = None
 
     # ------------------------------------------------------------------ init
     def init(self, module: PDESurrogate) -> TrainerState:
@@ -370,9 +379,10 @@ class SurrogateTrainer:
         max_epochs: Optional[int] = None,
         host_hints: Optional[Dict] = None,
     ) -> Tuple[TrainerState, float, Dict[str, float]]:
-        """Per-epoch host loop for a one-member state (``TrainerState.member``
-        of a stack trains that member in place).  Returns the final state,
-        the last val loss (the elite score, mbrl.py:595), and logs.
+        """Per-epoch host loop for a one-member state (a member of a stack,
+        ``TrainerState.member``, is trained in the trainer's slot and copied
+        back in place).  Returns the final state, the last val loss (the
+        elite score, mbrl.py:595), and logs.
 
         ``host_hints`` may carry host copies of ``fill``, ``train_np``,
         ``val_np`` and ``start_step`` that the caller already holds.
@@ -383,10 +393,20 @@ class SurrogateTrainer:
         patience = cfg.patience if patience is None else patience
         max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
         hints = host_hints or {}
+        self._check_graphed(generator)
         fill, train_np, val_np = _host_inputs(hints, replay, train_mask, val_mask)
 
         start_step = (int(hints["start_step"]) if "start_step" in hints
                       else int(state.global_step[0]))
+        slot, inp = self._one_member(state, train_mask.shape[0])
+        copy_into(slot.tensors(), state.tensors())
+        inp.train_mask.copy_(train_mask)
+        inp.val_mask.copy_(val_mask)
+        captured: List = []
+
+        def graph_state():
+            return tensors_of(slot, replay, und, stransf, inp)
+
         best, wait = math.inf, 0
         val_loss = math.nan
         logs: Dict[str, float] = {}
@@ -402,28 +422,43 @@ class SurrogateTrainer:
             lr = cfg.lr * (cfg.lr_gamma ** (epoch // cfg.step_size))
             _check_windows(fill, train_np, val_np, length)
             nb = _batches(fill, train_np, length, cfg.batch_size)
+            nb_eff = nb
+            if max_steps:
+                nb_eff = max(0, min(nb, max_steps - steps_taken))
+
+            def train_body(length=length):
+                obs, actions = self._draw(replay, generator, length, inp.train_mask, stransf)
+                return self.train_step(slot, obs, actions, und, inp.lr)[1]["train_loss"]
+
+            def val_body(length=length):
+                obs, actions = self._draw(replay, generator, length, inp.val_mask, stransf)
+                vm = self.val_step(slot.module, obs, actions, und, stransf)
+                return torch.stack([vm["val_loss"], vm["val_delta_loss"]])
 
             t0 = time.perf_counter()
-            tm = None
-            for _ in range(nb):
-                if max_steps and steps_taken >= max_steps:
-                    stop = True
-                    break
-                obs, actions = self._draw(replay, generator, length, train_mask, stransf)
-                state, tm = self.train_step(state, obs, actions, und, lr)
-                steps_taken += 1
-            train_loss = math.nan if tm is None else float(tm["train_loss"])
+            inp.lr.fill_(lr)
+            tl = None
+            for _ in range(nb_eff):
+                # The clip is read when the step is captured, so it keys it.
+                tl = self._run(("fit_one_step", length, cfg.batch_size, cfg.tau, cfg.tbtt,
+                                cfg.gradient_clip_val), train_body, graph_state, captured)
+            steps_taken += nb_eff
+            if max_steps and nb_eff < nb:
+                stop = True
             t1 = time.perf_counter()
-
-            obs, actions = self._draw(replay, generator, length, val_mask, stransf)
-            vm = self.val_step(state.module, obs, actions, und, stransf)
-            val_loss = float(vm["val_loss"])
+            vl = self._run(("fit_one_val", length, cfg.batch_size), val_body, graph_state,
+                           captured)
+            # The epoch's one pull: its val losses and its last train loss.
+            pulled = vl if tl is None else torch.cat([vl, tl.reshape(1)])
+            pulled = pulled.to("cpu", torch.float64).tolist()
+            val_loss, val_delta_loss = pulled[:2]
+            train_loss = math.nan if tl is None else pulled[2]
             t_train += t1 - t0
             t_val += time.perf_counter() - t1
             logs = {
                 "train_loss": train_loss,
                 "val_loss": val_loss,
-                "val_delta_loss": float(vm["val_delta_loss"]),
+                "val_delta_loss": val_delta_loss,
                 "epochs": epoch + 1,
                 "curriculum_K": k,
                 "lr": lr,
@@ -441,10 +476,42 @@ class SurrogateTrainer:
                 stop = True
             epoch += 1
 
+        copy_into(state.tensors(), slot.tensors())
         logs["steps"] = steps_taken
         logs["t_fit_train"] = round(t_train, 4)
         logs["t_fit_val"] = round(t_val, 4)
+        if captured:
+            logs["t_fit_capture"] = round(sum(g.seconds for g in captured), 4)
+            logs["fit_graph_pool_mb"] = round(sum(g.pool_bytes for g in captured) / 1e6, 3)
         return state, val_loss, logs
+
+    def _one_member(self, state: TrainerState, rows: int) -> Tuple[TrainerState, FitInputs]:
+        """The one-member fit's slot, a one-member state of its own made once
+        per layout from a copy of ``state``'s module, and its inputs (the
+        learning rate and the split's row masks), at fixed addresses so
+        that a CUDA graph of its step replays for every member."""
+        p = state.params
+        slot = self._slot
+        if (slot is None or slot.params.shape != p.shape or slot.params.device != p.device
+                or slot.params.dtype != p.dtype):
+            module = copy.deepcopy(state.module)
+            slot = self._slot = self.init_members([module], stack_parameters([module]))
+        inp = self._one_inputs
+        if inp is None or inp.train_mask.shape[0] != rows or inp.lr.device != p.device:
+            mask = torch.zeros((rows,), dtype=torch.bool, device=p.device)
+            inp = self._one_inputs = FitInputs(
+                lr=torch.zeros((), dtype=p.dtype, device=p.device),
+                active=torch.ones((1,), dtype=torch.bool, device=p.device),
+                train_mask=mask, val_mask=mask.clone())
+        return slot, inp
+
+    def _check_graphed(self, generator) -> None:
+        if self.graphs is None:
+            return
+        if self.check is not None:
+            raise ValueError("the graphed fit cannot run the finite checks")
+        if not any(g is generator for g in self.graphs.generators):
+            raise ValueError("the graphed fit must draw from its graphs' generator")
 
     # ------------------------------------------------------- lock-step fit
     def _fit_inputs(self, state: TrainerState, rows: int) -> FitInputs:
@@ -462,27 +529,14 @@ class SurrogateTrainer:
         return inp
 
     def _run(self, key: Tuple, body: Callable[[], torch.Tensor],
-             state: Sequence[torch.Tensor], captured: List) -> torch.Tensor:
-        """``body`` eagerly, or its CUDA graph under ``key``: the first call
-        of a key runs eagerly, as a real step, and captures the graph after
-        it (the capture launches nothing and leaves the state as it was);
-        every later call replays it.  A failed capture or replay raises."""
+             state: Callable[[], Sequence[torch.Tensor]], captured: List) -> torch.Tensor:
+        """``body`` eagerly, or through its CUDA graph under ``key``
+        (``GraphCache.run``: the first call of a key runs eagerly and
+        captures after it, every later call replays it)."""
         if self.graphs is None:
             return body()
-        graph = self.graphs.get(key)
-        if graph is None:
-            out = body()
-            try:
-                captured.append(self.graphs.capture(key, body, state))
-            except Exception as e:
-                raise RuntimeError(f"capturing the surrogate fit's {key[0]} {key} as a "
-                                   f"CUDA graph failed: {e}") from e
-            return out
-        try:
-            return graph.replay(state)
-        except Exception as e:
-            raise RuntimeError(f"replaying the surrogate fit's {key[0]} {key} failed: "
-                               f"{e}") from e
+        return self.graphs.run(key, body, state, f"the surrogate fit's {key[0]}",
+                               captured=captured)
 
     def fit_ensemble(
         self,
@@ -511,11 +565,7 @@ class SurrogateTrainer:
         patience = cfg.patience if patience is None else patience
         max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
         hints = host_hints or {}
-        if self.graphs is not None:
-            if self.check is not None:
-                raise ValueError("the graphed fit cannot run the finite checks")
-            if not any(g is generator for g in self.graphs.generators):
-                raise ValueError("the graphed fit must draw from its graphs' generator")
+        self._check_graphed(generator)
 
         t_prep0 = time.perf_counter()
         m = state.num_members
@@ -531,8 +581,10 @@ class SurrogateTrainer:
         inp = self._fit_inputs(local, train_mask.shape[0])
         inp.train_mask.copy_(train_mask)
         inp.val_mask.copy_(val_mask)
-        graph_state = tensors_of(state, replay, und, stransf, inp)
         captured: List = []
+
+        def graph_state():
+            return tensors_of(state, replay, und, stransf, inp)
 
         best = np.full(m, np.inf)
         wait = np.zeros(m, int)

@@ -1,9 +1,10 @@
-"""CUDA graphs of the MBPO loop (the port's own; the JAX package's
-counterpart is one jitted program per static shape, ``_fused_jit`` in
-``pdecontrol_tpu/mbrl/controller.py``).
+"""CUDA graphs of the port's compiled loops (the port's own; the JAX
+package's counterpart is one jitted program per static shape, such as
+``_fused_jit`` in ``pdecontrol_tpu/mbrl/controller.py``).
 
 ``GraphCache`` captures a function of no arguments once per key and replays
-it from then on:
+it from then on (``GraphCache.run`` runs the first call of a key eagerly and
+captures after it):
 
   * every graph of a cache allocates from one memory pool: the graphs'
     replays never overlap, and what a body keeps between replays lives in
@@ -18,7 +19,9 @@ it from then on:
   * the addresses of the tensors the body reads and writes are noted at
     the capture and checked before each replay: a graph reads and writes
     fixed addresses, so state that a caller rebound to a new tensor would
-    no longer reach it.
+    no longer reach it;
+  * a graph's output lies in the shared pool, where another graph's
+    replay may write its temporaries, so ``run`` hands back a copy of it.
 
 Nothing falls back to running the body eagerly: a capture or replay that
 fails raises.
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Hashable, List, Sequence
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -84,6 +87,18 @@ def tensors_of(*objs) -> List[torch.Tensor]:
     return out
 
 
+def _copied(out):
+    """``out`` with each of its tensors copied, through dicts, tuples and
+    lists."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _copied(v) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_copied(v) for v in out)
+    return out
+
+
 @dataclasses.dataclass
 class CapturedGraph:
     graph: torch.cuda.CUDAGraph
@@ -93,6 +108,7 @@ class CapturedGraph:
     seconds: float  # the capture's wall time
     pool_bytes: int  # what the capture added to the shared pool
     rows: Dict[object, int] = dataclasses.field(default_factory=dict)  # module -> rows per replay
+    counters: List[int] = dataclasses.field(default_factory=list)  # host counters per replay
 
     def replay(self, state: Sequence[torch.Tensor]) -> torch.Tensor:
         if [t.data_ptr() for t in state] != self.addresses:
@@ -155,3 +171,42 @@ class GraphCache:
         )
         self.graphs[key] = captured
         return captured
+
+    def run(self, key: Hashable, body: Callable[[], object],
+            state: Callable[[], Sequence[torch.Tensor]], what: str,
+            counters: Sequence[Tuple[object, str]] = (),
+            captured: Optional[List[CapturedGraph]] = None):
+        """``body`` under ``key``: the first call of a key runs it eagerly,
+        as a real step (which loads every kernel and sets up every library
+        handle and optimizer state it touches), and captures it after that;
+        every later call replays the graph and returns a copy of its
+        output.  ``state`` gives the tensors the body reads and writes, read
+        after the eager run and before each replay.  ``counters`` names the
+        host counters the body advances, as (object, attribute) pairs: the
+        capture puts them back, and each replay advances them as the capture
+        did.  A new capture is appended to ``captured``.  A failed capture
+        or replay raises, naming ``what`` and the key."""
+        graph = self.graphs.get(key)
+        if graph is None:
+            out = body()
+            before = [getattr(obj, name) for obj, name in counters]
+            try:
+                graph = self.capture(key, body, state())
+            except Exception as e:
+                raise RuntimeError(f"capturing {what} {key} as a CUDA graph failed: "
+                                   f"{e}") from e
+            finally:
+                after = [getattr(obj, name) for obj, name in counters]
+                for (obj, name), value in zip(counters, before):
+                    setattr(obj, name, value)
+            graph.counters = [b - a for a, b in zip(before, after)]
+            if captured is not None:
+                captured.append(graph)
+            return out
+        try:
+            out = _copied(graph.replay(state()))
+        except Exception as e:
+            raise RuntimeError(f"replaying {what} {key} failed: {e}") from e
+        for (obj, name), step in zip(counters, graph.counters):
+            setattr(obj, name, getattr(obj, name) + step)
+        return out

@@ -74,6 +74,17 @@ def _torch_controller(run_dir, **env_over):
 # ------------------------------------------------- evaluate_surrogate rollout
 @pytest.mark.parametrize("row, start", [(1, 0), (4, 2)])
 def test_surrogate_rollout_matches_jax(tmp_path, row, start):
+    _surrogate_rollout_against_jax(tmp_path, row, start, int)
+
+
+@pytest.mark.parametrize("row, start", [(1, 0), (4, 2)])
+def test_surrogate_rollout_with_tensor_indices_matches_jax(tmp_path, row, start):
+    """``row`` and ``start`` as 0-d tensors, as a CUDA graph of the rollout
+    reads them (the JAX package passes them traced)."""
+    _surrogate_rollout_against_jax(tmp_path, row, start, torch.tensor)
+
+
+def _surrogate_rollout_against_jax(tmp_path, row, start, index):
     rng = np.random.default_rng(0)
     je = jenv.KuramotoSivashinsky.create(**ENV, dtype=jnp.float64)
     ctl = _torch_controller(tmp_path / "t", dtype=torch.float64)
@@ -127,7 +138,7 @@ def test_surrogate_rollout_matches_jax(tmp_path, row, start):
     jout = JC.PDEModelBasedController._sur_eval_fn(jctl, H)(
         jax.random.PRNGKey(4), jens, jreplay, jtr,
         jnp.asarray(row, jnp.int32), jnp.asarray(start, jnp.int32))
-    tout = ctl.surrogate_rollout(row, start, H)
+    tout = ctl.surrogate_rollout(index(row), index(start), H)
 
     assert set(tout) == set(jout) == {"err", "hstep", "reward_err", "truth", "preds",
                                       "actions", "rtrue", "rpred"}
@@ -163,7 +174,10 @@ def test_evaluate_surrogate_draws_row_and_start_then_rolls_out(tmp_path, monkeyp
 
     monkeypatch.setattr(ctl, "surrogate_rollout", spy)
     out = ctl.evaluate_surrogate()
-    assert calls == [(row, start, H)]
+    # The pair goes in as 0-d tensors on the controller's device, which a
+    # CUDA graph of the rollout reads.
+    assert all(isinstance(x, torch.Tensor) and x.device == ctl.device for x in calls[0][:2])
+    assert [(int(r), int(s), h) for r, s, h in calls] == [(row, start, H)]
     assert set(out) == {"surrogate_open_loop_mse", "reward_model_error"}
     assert all(np.isfinite(v) for v in out.values())
 

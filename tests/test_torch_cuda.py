@@ -218,7 +218,7 @@ def test_limb_kernel_wrapper_raises_instead_of_falling_back(dev):
 
 
 # ------------------------------------------------------ checkpoint and resume
-def _tiny_controller(run_dir, *flags, device=None):
+def _tiny_controller(run_dir, *flags, device=None, graphs=True):
     """The MBPO controller at a tiny size (32 grid points: one point per lane
     of K1; 8-step episodes; 2 envs), on the card unless told otherwise."""
     import json
@@ -247,7 +247,7 @@ def _tiny_controller(run_dir, *flags, device=None):
         "--run_dir", str(run_dir), "--checkpoint_freq", "2", *flags,
     ]
     config = script.config_from_args(script.build_parser().parse_args(args))
-    return PDEModelBasedController(config, device=device)
+    return PDEModelBasedController(config, device=device, graphs=graphs)
 
 
 def _tensors(tree, path="state"):
@@ -439,16 +439,17 @@ def test_graphs_of_two_horizons_share_one_pool(dev, tmp_path):
              "--rollout_length_schedule", schedule)
     graphed = _tiny_controller(tmp_path / "graphed", *flags)
     graphed.learn()  # the warm-up and iteration 0
-    eager = _tiny_controller(tmp_path / "eager", *flags, "--no_fuse_iteration")
+    eager = _tiny_controller(tmp_path / "eager", *flags, "--no_fuse_iteration", graphs=False)
     C.load_controller_state(eager, C.to_host(C.controller_state(graphed)))
     try:
         for ctl in (graphed, eager):
             for _ in range(3):
                 ctl._run_iteration()
             ctl._flush_pending_log()
-        horizons = [key[1] for key in graphed.graphs.graphs if key[0] not in FIT_GRAPHS]
+        # The fused iteration's keys are (rollout length, horizon, rounds, updates).
+        horizons = [key[1] for key in graphed.graphs.graphs if isinstance(key[0], int)]
         assert sorted(horizons) == [2, 3]
-        assert not eager.graphs.graphs
+        assert eager.graphs is None
         a = dict(_tensors(C.controller_state(graphed)))
         b = dict(_tensors(C.controller_state(eager)))
         for path, t in a.items():
@@ -560,6 +561,222 @@ def test_fit_replay_after_a_rebound_parameter_raises(fitted):
     cell.wx.weight = torch.nn.Parameter(cell.wx.weight.detach().clone())
     with pytest.raises(RuntimeError, match="replaying the surrogate fit's fit_step"):
         graphed.update_surrogates()
+
+
+# ------------------------- the phases, evaluations, SAC chunk, fit and gate
+def _same_state(a, b, label):
+    """Every tensor of two controllers' snapshots (networks, Adam state,
+    replays, transforms, env state, generator) is equal, as are the host
+    counters."""
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    sa, sb = dict(_tensors(C.controller_state(a))), dict(_tensors(C.controller_state(b)))
+    assert sa.keys() == sb.keys()
+    for path, t in sa.items():
+        assert torch.equal(t, sb[path]), (label, path)
+    assert (a.num_pol_updates, a.sac_state.updates) == (b.num_pol_updates, b.sac_state.updates)
+
+
+def _same(x, y, label):
+    if isinstance(x, dict):
+        assert x.keys() == y.keys(), label
+        for k in x:
+            _same(x[k], y[k], (label, k))
+    elif isinstance(x, (tuple, list)):
+        for i, (p, q) in enumerate(zip(x, y)):
+            _same(p, q, (label, i))
+    elif isinstance(x, torch.Tensor):
+        assert torch.equal(x, y), label
+    else:
+        assert x == y, label
+
+
+@pytest.fixture
+def phase_pair(dev, tmp_path):
+    """A controller after the warm-up and iteration 0 (a retrain, whose
+    phases and evaluation captured their graphs) and one built with
+    ``graphs=False`` loaded with its state."""
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    flags = ("--checkpoint_freq", "0", "--total_timesteps", "10")
+    graphed = _tiny_controller(tmp_path / "graphed", *flags)
+    graphed.learn()
+    eager = _tiny_controller(tmp_path / "eager", *flags, graphs=False)
+    C.load_controller_state(eager, C.to_host(C.controller_state(graphed)))
+    assert eager.graphs is None
+    yield graphed, eager
+    graphed.logger.finish()
+    eager.logger.finish()
+
+
+PHASES = {
+    "collect": (lambda c: c.collect(c.config.rollout_length), ("collect", 1, False)),
+    "imagine": (lambda c: c.imagine(2), ("world", 2, 1)),
+    "update_policy": (lambda c: c.update_policy(), ("policy", 2)),
+    "evaluate_policy": (lambda c: c.evaluate_policy(), ("eval", 8, 2)),
+}
+
+
+@pytest.mark.parametrize("phase", sorted(PHASES))
+def test_graphed_phase_equals_the_eager_one(phase_pair, phase):
+    """Each retrain phase and the policy evaluation, replayed three times
+    from the graph iteration 0 captured: every output and every tensor of
+    the controller's state (the generator's too) equal the eager calls'
+    bit for bit, and the launch counts advance alike."""
+    from pdecontrol_tpu_torch.ops import pallas_ks
+
+    graphed, eager = phase_pair
+    call, key = PHASES[phase]
+    assert graphed.graphs.get(key) is not None
+    for _ in range(3):
+        outs = []
+        for ctl in (graphed, eager):
+            before = pallas_ks.launch_count
+            outs.append((call(ctl), pallas_ks.launch_count - before))
+        torch.cuda.synchronize()
+        _same(outs[0], outs[1], phase)
+    _same_state(graphed, eager, phase)
+
+
+def test_graphed_surrogate_rollout_equals_the_eager_one(phase_pair):
+    """``evaluate_surrogate`` (its row and start written into the index
+    tensors the graph reads) three times: the first call captures, the
+    next two replay; the records and the state equal the eager calls'."""
+    graphed, eager = phase_pair
+    for ctl in (graphed, eager):
+        ctl.collect(8)  # finished episodes to evaluate on
+    for i in range(3):
+        got = [ctl.evaluate_surrogate(4) for ctl in (graphed, eager)]
+        assert got[0] == got[1] and got[0], i
+    assert graphed.graphs.get(("sur_eval", 4)) is not None
+    _same_state(graphed, eager, "surrogate_rollout")
+
+
+def test_phase_replay_after_a_rebound_replay_raises(phase_pair):
+    """The collect graph writes the replay where it stood at the capture."""
+    graphed, _ = phase_pair
+    graphed.replay = graphed.replay.__class__(
+        **{k: v.clone() for k, v in vars(graphed.replay).items()})
+    with pytest.raises(RuntimeError, match=r"replaying the collect phase \('collect'"):
+        graphed.collect(1)
+
+
+def _sac_trainer(tmp_path, graphs):
+    import json
+
+    from pdecontrol_tpu_torch.sac import train
+
+    args = train.build_parser().parse_args([
+        "--env_config", json.dumps({"n": 32, "cfg_steps": 5, "t_max": 0.04,
+                                    "transient_time": 0.5, "solver": "pallas"}),
+        "--num_envs", "2", "--learning_starts", "16", "--batch_size", "8",
+        "--pool_size", "8", "--num_eval_episodes", "2", "--hidden_size", "32",
+        "--run_dir", str(tmp_path)])
+    trainer = train.SACTrainer(args, device="cuda", graphs=graphs)
+    trainer.run_chunk(8, True, 0)  # the random warmup, eager in both
+    return trainer
+
+
+def _sac_state(trainer):
+    from pdecontrol_tpu_torch.utils.graphs import tensors_of
+
+    return tensors_of(trainer.env_state, trainer.tr, trainer.pool, trainer.replay,
+                      trainer.sac_state) + [trainer.gen.get_state()]
+
+
+@pytest.mark.parametrize("route", ["chunk", "evaluate"])
+def test_graphed_sac_baseline_equals_the_eager_one(dev, tmp_path, route):
+    """Three chunks of 4 env steps with one update each (the first captures,
+    the next two replay), or three evaluations, from one state: outputs,
+    env state, scaling, replay, networks, Adam state, update counter and
+    generator equal the eager trainer's bit for bit."""
+    graphed, eager = (_sac_trainer(tmp_path / name, g) for name, g in (("g", True), ("e", False)))
+    for a, b in zip(_sac_state(graphed), _sac_state(eager)):
+        assert torch.equal(a, b)
+    for i in range(3):
+        if route == "chunk":
+            outs = [t.run_chunk(4, False, 1) for t in (graphed, eager)]
+        else:
+            outs = [t.evaluate() for t in (graphed, eager)]
+        torch.cuda.synchronize()
+        _same(outs[0], outs[1], (route, i))
+    key = ("chunk", 4, False, 1) if route == "chunk" else ("evaluate", 8)
+    assert list(graphed.graphs.graphs) == [key] and eager.graphs is None
+    assert graphed.sac_state.updates == eager.sac_state.updates
+    for a, b in zip(_sac_state(graphed), _sac_state(eager)):
+        assert torch.equal(a, b)
+
+
+def test_graphed_one_member_fit_equals_the_eager_one(dev):
+    """Three epochs of 4, 4 and 3 TBPTT steps (window lengths 5, 6 and 7)
+    of a one-member fit, graphed and eager, from one generator state:
+    parameters, Adam state, counts, logs and the generator after it equal
+    bit for bit."""
+    from pdecontrol_tpu_torch.data import replay as R
+    from pdecontrol_tpu_torch.envs.transforms import Identity, SampleTransform
+    from pdecontrol_tpu_torch.models import factories
+    from pdecontrol_tpu_torch.train.losses import make_loss
+    from pdecontrol_tpu_torch.train.schedulers import Scheduler
+    from pdecontrol_tpu_torch.train.trainer import SurrogateTrainer, TrainConfig
+    from pdecontrol_tpu_torch.utils.graphs import GraphCache
+
+    fill = np.array([24] * 6 + [0, 0], np.int32)
+    train = torch.as_tensor(np.array([1, 1, 1, 1, 0, 0, 0, 0], bool), device=dev)
+    rep = R.create(8, 24, 2, (1, 32), (1, 32), torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    rep.obs_seq.copy_(torch.as_tensor(rng.normal(size=tuple(rep.obs_seq.shape))))
+    rep.actions.copy_(torch.as_tensor(rng.uniform(-1, 1, tuple(rep.actions.shape))))
+    rep.fill.copy_(torch.as_tensor(fill))
+    curriculum = Scheduler.factory({"scheduler": "LinearScheduler", "steptype": "epoch",
+                                    "start": 0, "stop": 2, "vmin": 3, "vmax": 5})
+    out = {}
+    for name in ("graphed", "eager"):
+        torch.manual_seed(0)
+        module = factories.make("KSAutoRegConvolutionalLSTM", delta=0.25, N=32).to(dev)
+        tr = SurrogateTrainer(make_loss("MSELoss", {}), TrainConfig(
+            tau=2, tbtt=4, lr=2e-3, lr_gamma=0.5, step_size=1, batch_size=4, patience=50,
+            max_epochs=3, gradient_clip_val=0.5))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        if name == "graphed":
+            tr.graphs = GraphCache([gen])
+        state, vl, logs = tr.fit(tr.init(module), rep, train, ~train & (rep.fill > 0),
+                                 Identity(), SampleTransform(), curriculum, 0, gen)
+        torch.cuda.synchronize()
+        out[name] = ([t.clone() for t in state.tensors()], vl, logs, gen.get_state())
+        if name == "graphed":
+            assert sorted(k[:2] for k in tr.graphs.graphs) == [
+                ("fit_one_step", 5), ("fit_one_step", 6), ("fit_one_step", 7),
+                ("fit_one_val", 5), ("fit_one_val", 6), ("fit_one_val", 7)]
+    (ga, gvl, glogs, ggen), (ea, evl, elogs, egen) = out["graphed"], out["eager"]
+    assert "t_fit_capture" in glogs and "t_fit_capture" not in elogs
+    for k in ("train_loss", "val_loss", "val_delta_loss", "epochs", "steps", "lr"):
+        assert glogs[k] == elogs[k], k
+    assert gvl == evl and glogs["steps"] == 11
+    for a, b in zip(ga, ea):
+        assert torch.equal(a, b)
+    assert torch.equal(ggen, egen)
+
+
+@pytest.mark.parametrize("solver,precision", [("xla", "highest"), ("pallas_packed", "bf16_3x")])
+def test_graphed_gate_rollout_equals_the_eager_one(dev, solver, precision):
+    """The gate's rollout of 16 envs x (4 + 6) periods with each period
+    replayed from its graph, and eagerly: the statistics are equal bit for
+    bit, and K2 launches once per period in both."""
+    from pdecontrol_tpu_torch.envs.kuramoto import KuramotoSivashinsky
+    from pdecontrol_tpu_torch.evaluation import bf16_gate
+    from pdecontrol_tpu_torch.ops import pallas_ks_packed
+
+    env = KuramotoSivashinsky.create(solver=solver, pallas_precision=precision, device=dev)
+    u0 = torch.rand((16, env.n), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev) * 2 - 1
+    got = {}
+    for graphs in (True, False):
+        before = pallas_ks_packed.launch_count
+        got[graphs] = bf16_gate.rollout_stats_from(env, u0, 4, 6, graphs=graphs)
+        got[graphs]["K2"] = pallas_ks_packed.launch_count - before
+    assert got[True]["K2"] == got[False]["K2"] == (10 if solver == "pallas_packed" else 0)
+    np.testing.assert_array_equal(got[True].pop("spectrum"), got[False].pop("spectrum"))
+    assert got[True] == got[False]
 
 
 # --------------------------------------- the families and Burgers on the card
@@ -702,3 +919,19 @@ def test_sac_gradient_all_reduce_keeps_the_networks_on_the_card(two_ranks):
     assert two_ranks[0]["sac_params"] == two_ranks[1]["sac_params"]
     print("largest gap to the one-rank update:", [r["sac_gap"] for r in two_ranks],
           "qf_loss:", [r["sac_qf_gap"] for r in two_ranks])
+
+
+def test_sac_on_two_data_ranks_against_one_process_over_200_updates(two_ranks):
+    """The same 200 batches of 512 and noises: ``SAC(mesh=)`` on two data
+    ranks (each on its half, gradients averaged through gloo) and one
+    process on the whole batch, in float32 and float64.  The ranks agree
+    exactly; each gap to one process is printed beside the gap one process
+    makes by reversing each batch's rows (another summation order alone)."""
+    a, b = two_ranks
+    assert a["sac_series_last"]["mesh"] == b["sac_series_last"]["mesh"]
+    keys = [f"sac_series_{t}{k}_gaps" for t in ("", "float64_") for k in ("mesh", "reorder")]
+    for r in two_ranks:
+        for k in keys:
+            assert all(np.isfinite(v) for v in r[k].values()), k
+    print("200 SAC updates, relative gaps of the last losses to one process: "
+          + "; ".join(f"{k[len('sac_series_'):-len('_gaps')]} {a[k]}" for k in keys))

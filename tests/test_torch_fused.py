@@ -233,6 +233,50 @@ def test_captured_graph_replay_counts_launches_and_checks_addresses(monkeypatch)
     assert captured.graph.replays == 2
 
 
+def test_graph_cache_run_warms_up_captures_then_replays_a_copy():
+    """``GraphCache.run`` without a card, its capture stood in for: the
+    first call runs the body eagerly and then captures it; the host counter
+    the capture advanced is put back and advanced by each replay; a replay
+    returns a copy of the graph's output; a failed capture raises with the
+    key, the counter put back."""
+    class Counter:
+        updates = 0
+
+    counter, state = Counter(), [torch.zeros(3)]
+
+    def body():
+        counter.updates += 2
+        state[0].add_(1)
+        return {"x": state[0] * 1}
+
+    cache = graphs.GraphCache([])
+
+    def capture(key, body_, state_):
+        out = body_()  # the capture runs the body's host code once
+        cache.graphs[key] = graphs.CapturedGraph(
+            graph=_Graph(), output=out, launches={}, addresses=[t.data_ptr() for t in state_],
+            seconds=0.0, pool_bytes=0)
+        return cache.graphs[key]
+
+    cache.capture = capture
+    seen = []
+    first = cache.run("k", body, lambda: state, "the test body", ((counter, "updates"),), seen)
+    assert float(first["x"][0]) == 1 and counter.updates == 2 and len(seen) == 1
+    again = cache.run("k", body, lambda: state, "the test body", ((counter, "updates"),), seen)
+    assert counter.updates == 4 and len(seen) == 1 and seen[0].graph.replays == 1
+    assert torch.equal(again["x"], seen[0].output["x"])
+    assert again["x"].data_ptr() != seen[0].output["x"].data_ptr()
+
+    def failing(key, body_, state_):
+        body_()
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    cache.capture = failing
+    with pytest.raises(RuntimeError, match="capturing the test body j as a CUDA graph failed"):
+        cache.run("j", body, lambda: state, "the test body", ((counter, "updates"),))
+    assert counter.updates == 6 and "j" not in cache.graphs
+
+
 def test_world_step_picks_the_reset_on_the_device(runs):
     """The world step's auto-reset without a host read: where every sub-env
     is at its time limit the step returns the fresh state drawn after the

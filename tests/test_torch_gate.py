@@ -1,7 +1,8 @@
 """The bf16 attractor gate of the port against the JAX package on the CPU:
 ``compare`` on the same statistics, ``rollout_stats`` from the same initial
-field (the one the JAX function draws from its key), and the CLI at a tiny
-size."""
+field (the one the JAX function draws from its key), its per-period
+statistics buffered and reduced once as the JAX gate's scan outputs are,
+and the CLI at a tiny size."""
 
 import copy
 import json
@@ -14,8 +15,9 @@ import torch
 
 from pdecontrol_tpu.envs.kuramoto import KuramotoSivashinsky as JEnv
 from pdecontrol_tpu.evaluation import bf16_gate as JG
-from pdecontrol_tpu_torch.envs.kuramoto import KuramotoSivashinsky
+from pdecontrol_tpu_torch.envs.kuramoto import EnvState, KuramotoSivashinsky
 from pdecontrol_tpu_torch.evaluation import bf16_gate as G
+from pdecontrol_tpu_torch.ops.kuramoto import ks_derivatives
 
 
 @pytest.fixture(autouse=True)
@@ -65,6 +67,30 @@ def test_rollout_stats_of_the_limb_modes_are_close_to_float32(precision):
         solver="pallas_packed", pallas_precision=precision, **KW), ic, 3, 6)
     verdict = G.compare(fp32, fast, rtol_means=1e-3, rtol_spec=1e-2)
     assert verdict["ok"], verdict
+
+
+def test_buffered_statistics_are_the_per_period_loops():
+    """The buffers hold each period's statistics in its own row: their
+    reductions equal, bit for bit, those of a loop that keeps every
+    period's statistics in a list and stacks them at the end (the JAX
+    gate's scan body and outputs, ``bf16_gate.py:63-90``)."""
+    env = KuramotoSivashinsky.create(solver="xla", **KW)
+    u0 = torch.as_tensor(_jax_ic())
+    got = G.rollout_stats_from(env, u0, transient=3, periods=6, graphs=False)
+    state = EnvState(u=u0.clone(), step=torch.zeros((8,), dtype=torch.int32))
+    actions = torch.zeros((8, 1, env.num_jets))
+    for _ in range(3):
+        state, _ = env.step(state, actions)
+    rows, spec = [], []
+    for _ in range(6):
+        state, _ = env.step(state, actions)
+        u_x, u_xx, _ = ks_derivatives(env.ops, state.u)
+        rows.append([torch.mean(state.u * state.u), torch.mean(u_x * u_x),
+                     torch.mean(u_xx * u_xx)])
+        spec.append(torch.mean(torch.abs(torch.fft.rfft(state.u, dim=-1)) ** 2, dim=0))
+    for i, k in enumerate(("mean_energy", "mean_ux2", "mean_uxx2")):
+        assert got[k] == float(torch.stack([r[i] for r in rows]).mean()), k
+    np.testing.assert_array_equal(got["spectrum"], torch.stack(spec).mean(0).numpy())
 
 
 def test_rollout_stats_draws_from_the_generator():

@@ -131,7 +131,8 @@ def test_lockstep_fit_equals_one_fit_per_member(case):
         own = {"train": 0, "val": 0, "vals": []}
 
         def draw(replay, generator, length, mask, stransf_, i=i, own=own):
-            kind = "val" if mask is val_mask else "train"
+            # The fit draws through its own copies of the masks.
+            kind = "val" if mask is single._one_inputs.val_mask else "train"
             out = (train if kind == "train" else val)[own[kind]]
             own[kind] += 1
             return out[0][i], out[1][i]

@@ -18,8 +18,10 @@ MODE is one of:
     primary's run for 2 more iterations; each rank writes
     ``DIR/controller{RANK}.json`` (and rank 0 ``DIR/collect.npz``);
   * ``cuda``: two ranks on one card through gloo: a gather against local
-    concatenation, the sharded collect through K1 against one rank's, and a
-    SAC update whose averaged gradients leave the networks on the card; each
+    concatenation, the sharded collect through K1 against one rank's, a
+    SAC update whose averaged gradients leave the networks on the card, and
+    200 float32 updates of the flagship's agent at batch 512 with ``SAC(mesh=)``
+    against the same batches and noises in one process (``sac_series``); each
     rank writes ``DIR/cuda{RANK}.json``.
 """
 
@@ -229,8 +231,59 @@ def run_cuda(rank, outdir, device):
     out["sac_gap"] = max(float((a - b).abs().max()) for a, b in zip(nets, ref_nets))
     out["sac_qf_gap"] = float((m["qf_loss"] - ref_m["qf_loss"]).abs())
     out["sac_params"] = float(sum(p.double().sum() for p in nets))
+    out.update(sac_series(mesh, device))
     with open(os.path.join(outdir, f"cuda{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def sac_series(mesh, device, updates=200, batch=512):
+    """The last of ``updates`` SAC updates of the flagship's agent (64-point
+    obs, 4 jets, hidden 256) at ``batch``, in float32 and in float64: with
+    ``SAC(mesh=)`` on this rank's half of each batch and noise, in one
+    process on the whole batch, and in one process on the batch's rows in
+    reverse order (another summation order alone).  Returns each float32
+    run's last losses and, per dtype, the relative gaps of the mesh and of
+    the reversed rows to the one-process run."""
+    from pdecontrol_tpu_torch.data.types import Sample
+    from pdecontrol_tpu_torch.sac.sac import SAC, SACConfig
+
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def draw(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    batches = [(Sample(obs=draw(batch, 1, 64) * 2 - 1, actions=draw(batch, 1, 4) * 2 - 1,
+                       nxtobs=draw(batch, 1, 64) * 2 - 1, rewards=-draw(batch),
+                       terminated=torch.zeros(batch, dtype=torch.bool, device=device),
+                       truncated=torch.zeros(batch, dtype=torch.bool, device=device),
+                       steps=torch.zeros(batch, dtype=torch.int32, device=device)),
+                (torch.randn((batch, 1, 4), generator=gen, device=device),
+                 torch.randn((batch, 1, 4), generator=gen, device=device)))
+               for _ in range(updates)]
+    rows = mesh.data_slice(batch)
+    whole = torch.arange(batch, device=device)
+    out = {}
+    for dtype, tag in ((torch.float32, ""), (torch.float64, "float64_")):
+        def cast(x):
+            return x.to(dtype) if x.is_floating_point() else x
+
+        last = {}
+        for name, agent_mesh, take in (("mesh", mesh, rows), ("one", None, whole),
+                                       ("reversed", None, whole.flip(0))):
+            torch.manual_seed(0)
+            sac = SAC((1, 64), (1, 4), SACConfig(), device=device, mesh=agent_mesh)
+            state = sac.init(dtype)
+            for sample, noise in batches:
+                state, m = sac.update(state, sample.apply(lambda x: cast(x[take])),
+                                      noise=tuple(cast(x[take]) for x in noise))
+            m = sac.global_metrics(m)
+            last[name] = {k: float(m[k]) for k in ("qf_loss", "policy_loss")}
+        for a in ("mesh", "reversed"):
+            out[f"sac_series_{tag}{'reorder' if a == 'reversed' else a}_gaps"] = {
+                k: abs(last[a][k] - last["one"][k]) / abs(last["one"][k]) for k in last["one"]}
+        if not tag:
+            out["sac_series_last"] = last
+    return out
 
 
 def main(argv=None):
