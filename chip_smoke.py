@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen phases, each timed:
+Eighteen phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
@@ -143,7 +143,18 @@ Seventeen phases, each timed:
      and both runs' iteration wall times are printed.  Iteration 0's keys
      that follow its 200 float32 SAC updates (their losses, the evaluation)
      are printed beside the gap that one process makes by reversing the
-     rows of each SAC batch (``sac_reorder_gaps``), not held.
+     rows of each SAC batch (``sac_reorder_gaps``), not held.  Through gloo
+     every rank replays the lock-step fit's graphs (each rank's
+     ``t_fit_capture``, ``fit_graph_pool_mb`` and last ``t_fit_total`` are
+     printed) and runs the fused iteration's phases, the phases and the
+     evaluations eagerly, since gloo's collectives run on the host
+     (``controller.graph_routes``); ``parallel/mesh_smoke.py`` runs the same
+     arguments on four cards through NCCL, every route graphed;
+ 18. one NCCL rank — a process group of world size 1 on the card (NCCL
+     refuses two ranks on one card): a body that calls
+     ``dist.all_reduce`` is captured through ``GraphCache`` and replayed 3
+     times on fresh inputs, each replay equal to the eager body bit for
+     bit (``mesh_smoke.py one``).
 
 Every retrain of the MBPO paths (phases 3, 6 and 8 to 11 and 13) runs the
 default lock-step fit, its TBPTT and validation steps replayed from CUDA
@@ -318,20 +329,10 @@ MESH_ONE_ARGS = with_args(MESH_ARGS, data_parallel="1", model_parallel="1",
 MESH_COLLECT_LAUNCHES = 250 + 6
 MESH_K1_LAUNCHES = 920 + 800 + MESH_COLLECT_LAUNCHES
 MESH_OTHER_ROWS = 920 * 64 + 800 * 10
-# The record keys of tests/test_parallel.py's full-iteration equivalence.
-MESH_KEYS = ("collect_reward_mean", "imagined_reward_mean", "train_loss", "val_loss",
-             "sac_qf_loss", "sac_policy_loss", "eval_return_mean", "surrogate_open_loop_mse",
-             "reward_model_error", "num_ensemble_updates", "horizon")
-# Of these, iteration 0's that come after its 200 float32 SAC updates (of
-# batch 512, each rank's half averaged over data): the last update's losses
-# and the evaluation of the updated policy.  Another summation order alone
-# moves them by about 1e-4: one process that only reverses the rows of each
-# batch moved the last losses by 1.1e-4 and 1.3e-4 on an H100
-# (``sac_reorder_gaps``), and the mesh's SAC batches also differ from 1x1's
-# by ulps (imagined by members fitted as 3 and 6 grouped convolutions).  So
-# they are printed beside that gap, not held (tests/test_parallel.py holds
-# them at 2e-4 in float64, on one SAC update per step).
-MESH_AFTER_SAC = ("sac_qf_loss", "sac_policy_loss", "eval_return_mean")
+# The comparison with 1x1 (``hold_one``: tests/test_parallel.py's keys up to
+# iteration 0's SAC updates at rtol 2e-4 / atol 1e-7, the SAC keys printed
+# beside ``sac_reorder_gaps``) is ``pdecontrol_tpu_torch/parallel/mesh_smoke.py``'s,
+# which holds the same arguments on four cards through NCCL.
 
 # runscripts/mbpo_ks_bf16.sh: the same run through K2 at bf16_3x, with
 # agent_eval_freq 50 -> 5, so that iteration 5 evaluates on the fused route
@@ -1589,51 +1590,6 @@ def run_dryrun():
                            f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
 
 
-def sac_reorder_gaps(updates=200, batch=512):
-    """The relative gaps of the last of ``updates`` float32 SAC updates of
-    the flagship's agent (64-point obs, 4 jets, hidden 256) on the card
-    when each batch's rows come in reverse order: the same arithmetic in
-    another summation order, in one process."""
-    import copy
-
-    import torch
-
-    from pdecontrol_tpu_torch.data.types import Sample
-    from pdecontrol_tpu_torch.sac.sac import SAC, SACConfig
-
-    dev = torch.device("cuda")
-    torch.manual_seed(0)
-    sac = SAC((1, 64), (1, 4), SACConfig(), device=dev)
-    start = sac.init()
-    gen = torch.Generator(device=dev).manual_seed(1)
-
-    def draw(*shape):
-        return torch.rand(shape, generator=gen, device=dev)
-
-    batches = [(Sample(obs=draw(batch, 1, 64) * 2 - 1, actions=draw(batch, 1, 4) * 2 - 1,
-                       nxtobs=draw(batch, 1, 64) * 2 - 1, rewards=-draw(batch),
-                       terminated=torch.zeros(batch, dtype=torch.bool, device=dev),
-                       truncated=torch.zeros(batch, dtype=torch.bool, device=dev),
-                       steps=torch.zeros(batch, dtype=torch.int32, device=dev)),
-                (torch.randn((batch, 1, 4), generator=gen, device=dev),
-                 torch.randn((batch, 1, 4), generator=gen, device=dev)))
-               for _ in range(updates)]
-    out = []
-    for rows in (torch.arange(batch, device=dev), torch.arange(batch, device=dev).flip(0)):
-        state = copy.deepcopy(start)
-        for sample, noise in batches:
-            state, m = sac.update(state, sample.apply(lambda x: x[rows]),
-                                  noise=tuple(x[rows] for x in noise))
-        out.append({k: float(m[k]) for k in ("qf_loss", "policy_loss")})
-    return {f"sac_{k}": abs(out[1][k] - out[0][k]) / abs(out[0][k]) for k in out[0]}
-
-
-def iteration_walls(records):
-    """Each iteration's wall time: the gaps of its record's ``time``."""
-    times = [r["time"] for r in records]
-    return [round(b - a, 3) for a, b in zip([0.0] + times, times)]
-
-
 def run_mesh():
     """Phase 17: the mesh path as four rank processes, and at 1x1."""
     import numpy as np
@@ -1642,6 +1598,8 @@ def run_mesh():
     from pdecontrol_tpu_torch.mbrl import script
     from pdecontrol_tpu_torch.ops import pallas_ks
     from pdecontrol_tpu_torch.parallel.dryrun import free_port, launch
+    from pdecontrol_tpu_torch.parallel.mesh_smoke import (hold_one, iteration_walls,
+                                                          sac_reorder_gaps)
     from pdecontrol_tpu_torch.utils import checkpoint as C
 
     shutil.rmtree(RUN_DIR_MESH, ignore_errors=True)
@@ -1671,12 +1629,22 @@ def run_mesh():
     one_rows = pallas_ks.rows_launched
 
     for r in ranks:
+        fit = r["graphs"].get("fit", {})
         print(f"   rank {r['rank']}: {r['device']}, backend {r['backend']}, envs "
               f"{r['env_rows'][0]}:{r['env_rows'][1]}, K1 {r['K1']} launches of "
-              f"{r['K1_rows']} rows, K2 {r['K2']}, peak allocated {r['peak_allocated_mb']} MB",
-              flush=True)
+              f"{r['K1_rows']} rows, K2 {r['K2']}, peak allocated {r['peak_allocated_mb']} MB; "
+              f"the graphed fit: t_fit_capture {fit.get('t_capture')} s, fit_graph_pool_mb "
+              f"{fit.get('graph_pool_mb')}, the last retrain's t_fit_total "
+              f"{r['t_fit_total']} s", flush=True)
         if r["backend"] != "gloo" or r["device"] != "cuda:0":
             raise AssertionError(f"rank {r['rank']} ran on {r['device']} through {r['backend']}")
+        # gloo's collectives run on the host: only the fits replay graphs.
+        if r["routes"] != {"fused": False, "phases": False, "fit": True} or set(
+                r["graphs"]) != {"fit"} or {k[0] for k in fit["keys"]} != {"fit_step", "fit_val"}:
+            raise AssertionError(f"rank {r['rank']} took the routes {r['routes']} and captured "
+                                 f"{r['graphs']}")
+    print("   every rank replays the lock-step fit's graphs; the fused iteration, the phases "
+          "and the evaluations run eagerly (gloo's collectives run on the host)", flush=True)
     for label, k1, rows in [(f"rank {r['rank']}", r["K1"], r["K1_rows"]) for r in ranks] + [
             ("1x1", counts["K1"], one_rows)]:
         per = (rows - MESH_OTHER_ROWS) / (k1 - MESH_K1_LAUNCHES + MESH_COLLECT_LAUNCHES)
@@ -1708,27 +1676,9 @@ def run_mesh():
 
     mesh_recs = check_records(os.path.join(primary, "metrics.jsonl"), MESH_METRICS)[0]
     one_recs = check_records(os.path.join(RUN_DIR_MESH_ONE, "metrics.jsonl"), MESH_METRICS)[0]
-    if len(mesh_recs) != len(one_recs) or len(mesh_recs) != 6:
-        raise AssertionError(f"{len(mesh_recs)} records on the mesh, {len(one_recs)} at 1x1")
-    worst = {}
-    for a, b in zip(mesh_recs, one_recs):
-        for k in MESH_KEYS:
-            if (k in a) != (k in b):
-                raise AssertionError(f"iteration {a['iteration']}: {k} in one stream only")
-            if k not in a:
-                continue
-            va, vb = np.asarray(a[k], float), np.asarray(b[k], float)
-            if not np.isfinite(va).all():
-                raise AssertionError(f"iteration {a['iteration']}: {k} = {a[k]}")
-            gap = float(np.max(np.abs(va - vb) / np.maximum(np.abs(vb), 1e-12)))
-            if a["iteration"] > 0 or k in MESH_AFTER_SAC:
-                if gap >= worst.get((a["iteration"] > 0, k), (0.0,))[0]:
-                    worst[a["iteration"] > 0, k] = (gap, a["iteration"])
-            elif not np.allclose(va, vb, rtol=2e-4, atol=1e-7):
-                raise AssertionError(f"iteration 0: {k} {a[k]} on the mesh, {b[k]} at 1x1")
-    print("   iteration 0 agrees with 1x1 on " + ", ".join(
-        k for k in MESH_KEYS if k in mesh_recs[0] and k not in MESH_AFTER_SAC)
-        + " (rtol 2e-4, atol 1e-7)", flush=True)
+    held, worst = hold_one(mesh_recs, one_recs)
+    print(f"   iteration 0 agrees with 1x1 on {', '.join(held)} (rtol 2e-4, atol 1e-7)",
+          flush=True)
     floor = sac_reorder_gaps()
     print("   iteration 0 after its 200 SAC updates, relative gap to 1x1: " + ", ".join(
         f"{k} {g:.3e}" for (later, k), (g, _) in sorted(worst.items()) if not later)
@@ -1738,12 +1688,30 @@ def run_mesh():
     print("   iterations 1-5, largest relative gap to 1x1 (not held: float32 SAC on a "
           "chaotic system): " + ", ".join(f"{k} {g:.3e} (iteration {i})"
                                          for k, (g, i) in sorted(worst.items())), flush=True)
-    print(f"   iteration wall times, mesh (eager, 4 ranks sharing the card): "
-          f"{iteration_walls(mesh_recs)} s; 1x1 (fused, graphs): {iteration_walls(one_recs)} s",
-          flush=True)
+    print(f"   iteration wall times, mesh (eager phases, graphed fit, 4 ranks sharing the "
+          f"card): {iteration_walls(mesh_recs)} s; 1x1 (fused, graphs): "
+          f"{iteration_walls(one_recs)} s", flush=True)
     print(f"   wall: mesh {mesh_wall:.2f} s (4 processes, start-up included), 1x1 "
           f"{one_wall:.2f} s (in this process)", flush=True)
     return ranks
+
+
+def run_nccl_one():
+    """Phase 18: a process group of one NCCL rank on the card
+    (``mesh_smoke.py one``), its ``all_reduce`` captured and replayed."""
+    cmd = [sys.executable, "-m", "pdecontrol_tpu_torch.parallel.mesh_smoke", "one"]
+    print("   " + " ".join(cmd[1:]), flush=True)
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=180,
+                          env=dict(os.environ, PYTHONPATH=HERE))
+    if proc.returncode != 0:
+        raise RuntimeError(f"the NCCL rank failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"   {r['backend']} on {r['device']}, world size {r['world_size']}: the body's "
+          f"all_reduce captured in {r['t_capture']} s; {r['replays']} replays on fresh "
+          f"inputs, each equal to the eager body bit for bit: {r['equal']}", flush=True)
+    if not (r["backend"] == "nccl" and r["captured"] and r["equal"] == [True] * r["replays"]):
+        raise AssertionError(f"the NCCL capture: {r}")
 
 
 def main() -> int:
@@ -1849,7 +1817,11 @@ def main() -> int:
     t0 = phase("17 mesh 2x2 (mbpo_ks_mesh.sh, K1)")
     run_mesh()
     done("17 mesh 2x2 (mbpo_ks_mesh.sh, K1)", t0)
-    print(f"== phases 15-17: {time.perf_counter() - t15:.2f} s; phases 1-17: "
+
+    t0 = phase("18 one NCCL rank, its all_reduce captured")
+    run_nccl_one()
+    done("18 one NCCL rank, its all_reduce captured", t0)
+    print(f"== phases 15-18: {time.perf_counter() - t15:.2f} s; phases 1-18: "
           f"{time.perf_counter() - start:.2f} s in all", flush=True)
 
     print(json.dumps({"kernels": [

@@ -169,11 +169,21 @@ def _row_weights(replay: ReplayState, length: int,
 
 def _categorical(weights: torch.Tensor, batch: int,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``batch`` row draws with probability proportional to ``weights``.
-    All-zero weights (guarded against by the trainer) draw uniformly, as the
-    JAX package's ``log(w + 1e-30)`` logits do."""
-    w = weights + 1e-30
-    return torch.multinomial(w, batch, replacement=True, generator=generator)
+    """``batch`` row draws with probability proportional to ``weights``,
+    which count windows (whole numbers).  Each draw inverts the counts'
+    cumulative sum, taken in int64: exact in any order of summation, so the
+    same generator state draws the same rows in every run.  (On the card
+    ``torch.multinomial`` sums float probabilities with a scan whose order
+    varies from run to run, and over a large replay it drew other rows from
+    the same state.)  All-zero weights (guarded against by the trainer) draw
+    uniformly, as the JAX package's ``log(w + 1e-30)`` logits do."""
+    counts = weights.to(torch.int64)
+    empty = counts.sum() == 0
+    counts = torch.where(empty, torch.ones_like(counts), counts)
+    cdf = torch.cumsum(counts, 0)
+    u = torch.rand((batch,), generator=generator, dtype=torch.float64, device=weights.device)
+    target = torch.minimum(torch.floor(u * cdf[-1]).to(torch.int64), cdf[-1] - 1)
+    return torch.searchsorted(cdf, target, right=True)
 
 
 def sample_windows(

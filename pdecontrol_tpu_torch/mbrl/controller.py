@@ -47,8 +47,8 @@ the previous record (``t_capture``, ``graph_pool_mb``).  The random warmup
 runs eagerly: it runs once.  Every body writes the controller's state in
 place, in both modes, since a graph reads and writes fixed addresses.  The
 phases run eagerly on the CPU, under ``--debug_nans`` (whose checks wait
-for the device), under a mesh, and in a controller built with
-``graphs=False``.
+for the device), and in a controller built with ``graphs=False``; under a
+mesh the backend decides (``graph_routes``).
 
 A resumed run repeats neither the random warmup nor the initial policy
 evaluation (the JAX package repeats both, ``controller.py:1255-1266``): its
@@ -65,9 +65,12 @@ size from a generator seeded alike on every rank, and what the ranks share
 (the replays, the scalings, the networks, the members, the records) is
 gathered so that it is equal on every rank and equals the one-process run
 but for rounding.  Evaluation and the delta refit run on every rank alike.
-Only the primary rank writes files.  Under a mesh the phases and the fit
-run eagerly: gloo's collectives run on the host and cannot be captured in a
-CUDA graph.
+Only the primary rank writes files.  Under a mesh of NCCL ranks, a card
+each, the fused iteration, the phases and the evaluations replay CUDA
+graphs that hold the mesh's collectives, as the JAX package compiles its
+mesh path like its single-device path; under gloo, whose collectives run
+on the host and cannot be captured, they run eagerly.  The fits hold no
+collective and replay their graphs under either backend.
 """
 
 from __future__ import annotations
@@ -106,7 +109,7 @@ from pdecontrol_tpu_torch.utils import checkpoint as C
 from pdecontrol_tpu_torch.utils import profiling
 from pdecontrol_tpu_torch.utils.asyncviz import BackgroundRenderer
 from pdecontrol_tpu_torch.utils.device import entry_device
-from pdecontrol_tpu_torch.utils.graphs import GraphCache, copy_into, tensors_of
+from pdecontrol_tpu_torch.utils.graphs import GraphCache, copy_into, on_rank, tensors_of
 from pdecontrol_tpu_torch.utils.logging import MetricsLogger
 
 ENVS = {
@@ -138,6 +141,20 @@ def check_ported(cfg: MBPOConfig) -> None:
     where it is looked up, as in the JAX package."""
     if cfg.use_wandb:
         raise NotImplementedError("not yet ported: wandb logging")
+
+
+def graph_routes(mesh: Optional[meshlib.Mesh], debug_nans: bool) -> Dict[str, bool]:
+    """Which routes may replay CUDA graphs (on the card, in a controller
+    built with ``graphs``): ``fused``, the fused iteration; ``phases``, the
+    phases and the evaluations; ``fit``, the lock-step and the one-member
+    fits.  ``--debug_nans`` turns every graph off: its checks read the
+    host.  The fused iteration and the phases hold the mesh's collectives,
+    which a graph captures under NCCL but not under gloo; the fits hold
+    none (a rank draws every member's batch and keeps its own rows, and the
+    gathers run between the replays), so they follow the single-device
+    rule under either backend."""
+    collectives = not debug_nans and (mesh is None or mesh.backend == "nccl")
+    return {"fused": collectives, "phases": collectives, "fit": not debug_nans}
 
 
 def mesh_for(cfg: MBPOConfig) -> Optional[meshlib.Mesh]:
@@ -172,10 +189,11 @@ class PDEModelBasedController:
         self.device = dev = entry_device(device)
         # --debug_nans: finiteness checks at the phase boundaries.
         self.finite = profiling.FiniteChecks() if debug_nans else None
-        # The fused iteration and the graphed fit cannot stop to check, and
-        # cannot hold a collective of the mesh.
-        graphed = not debug_nans and self.mesh is None
-        self.fused = cfg.fuse_iteration and graphed
+        # The routes that may replay graphs: none under --debug_nans, whose
+        # checks read the host; under a mesh the fused iteration and the
+        # phases only where a graph captures the collectives (NCCL).
+        self.routes = graph_routes(self.mesh, debug_nans)
+        self.fused = cfg.fuse_iteration and self.routes["fused"]
         if cfg.fuse_iteration and debug_nans:
             print("[fuse] --debug_nans runs the eager phases", flush=True)
         if cfg.fuse_fit and cfg.vmap_ensemble_training and debug_nans:
@@ -186,12 +204,22 @@ class PDEModelBasedController:
         if self.mesh is not None:
             m = self.mesh
             members = m.model_slice(cfg.num_dynamics_models)
+            graphed = graphs and dev.type == "cuda"
+            if not graphed or debug_nans:
+                why = ("every route runs eagerly (" + ("--debug_nans" if debug_nans else
+                       "graphs=False" if not graphs else "no card") + ")")
+            elif self.routes["phases"]:
+                why = ("the fused iteration, the phases, the evaluations and the fits "
+                       "replay CUDA graphs, which hold NCCL's collectives")
+            else:
+                why = (f"the fits replay CUDA graphs; the fused iteration, the phases and "
+                       f"the evaluations run eagerly, since {m.backend}'s collectives run "
+                       f"on the host and no graph captures them")
             print(f"[mesh] {m.data_parallel}x{m.model_parallel}, rank {m.rank} (data "
-                  f"{m.data_index}, model {m.model_index}) on {dev}: envs "
-                  f"{self.env_rows.start}:{self.env_rows.stop} of {cfg.num_envs}, members "
-                  f"{members.start}:{members.stop} of {cfg.num_dynamics_models}; the eager "
-                  f"phases and the eager fit run (no CUDA graph holds the mesh's "
-                  f"collectives: gloo's run on the host)", flush=True)
+                  f"{m.data_index}, model {m.model_index}) on {dev} through {m.backend}: "
+                  f"envs {self.env_rows.start}:{self.env_rows.stop} of {cfg.num_envs}, "
+                  f"members {members.start}:{members.stop} of {cfg.num_dynamics_models}; "
+                  f"{why}", flush=True)
         torch.manual_seed(cfg.seed)  # module initialisation
         self.gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
@@ -322,10 +350,11 @@ class PDEModelBasedController:
         # eagerly in this process (which a capture of the fused iteration
         # needs first: it loads every kernel and sets up every library
         # handle and optimizer state the body touches).
-        self.graphs = (GraphCache([self.gen]) if dev.type == "cuda" and graphed and graphs
-                       else None)
-        self.trainer.fuse_fit = cfg.fuse_fit and graphed
-        self.trainer.graphs = self.graphs if self.trainer.fuse_fit else None
+        # The routes share one cache, and so one memory pool.
+        cache = GraphCache([self.gen]) if dev.type == "cuda" and graphs else None
+        self.graphs = cache if self.routes["phases"] else None
+        self.trainer.fuse_fit = cfg.fuse_fit and self.routes["fit"]
+        self.trainer.graphs = cache if self.trainer.fuse_fit else None
         self._capture_log: Dict[str, float] = {}
         self._pending_log = None
         # surrogate_rollout's replay row and start, written before each call.
@@ -993,7 +1022,9 @@ class PDEModelBasedController:
         """Capture this iteration's graph if it replays one not yet captured.
         A capture runs the body's host code once and launches nothing: the
         host counters it advanced are put back, and each replay advances
-        them."""
+        them.  No eager call of the key comes first: an earlier eager
+        iteration (``_warm``) loaded what the body touches, and under a mesh
+        ``make_mesh`` made every group's communicator."""
         key = self._fused_key()
         if (key is None or self.graphs is None or not self._warm
                 or self.graphs.get(key) is not None):
@@ -1005,7 +1036,8 @@ class PDEModelBasedController:
                                         self._graph_state())
         except Exception as e:
             raise RuntimeError(f"capturing the fused iteration {key} as a CUDA graph "
-                               f"failed in its {self._fused_phase} phase: {e}") from e
+                               f"failed{on_rank()} in its {self._fused_phase} phase: "
+                               f"{e}") from e
         finally:
             self.num_pol_updates, self.sac_state.updates = counters
         self._note_capture(f"the fused iteration {key}", graph)
@@ -1021,8 +1053,8 @@ class PDEModelBasedController:
             try:
                 packed = graph.replay(self._graph_state())
             except Exception as e:
-                raise RuntimeError(f"replaying the fused iteration {key} failed: "
-                                   f"{e}") from e
+                raise RuntimeError(f"replaying the fused iteration {key} "
+                                   f"failed{on_rank()}: {e}") from e
             self.num_pol_updates += key[3]
             self.sac_state.updates += key[3]
         self._warm = True
@@ -1168,6 +1200,21 @@ class PDEModelBasedController:
             "time": time.time() - self._start_time,
         }, pulled)
         self.iteration += 1
+
+    def graph_summary(self) -> Dict[str, Dict]:
+        """The CUDA graphs this controller captured, by route (``fused``,
+        ``phases``, ``fit``): their keys, their capture seconds and what
+        they added to the shared pool."""
+        cache = self.graphs or self.trainer.graphs
+        out: Dict[str, Dict] = {}
+        for key, graph in ({} if cache is None else cache.graphs).items():
+            route = ("fused" if isinstance(key[0], int)
+                     else "fit" if key[0].startswith("fit") else "phases")
+            r = out.setdefault(route, {"keys": [], "t_capture": 0.0, "graph_pool_mb": 0.0})
+            r["keys"].append(list(key))
+            r["t_capture"] = round(r["t_capture"] + graph.seconds, 4)
+            r["graph_pool_mb"] = round(r["graph_pool_mb"] + graph.pool_bytes / 1e6, 3)
+        return out
 
     def _take_captures(self) -> Dict[str, float]:
         log, self._capture_log = self._capture_log, {}

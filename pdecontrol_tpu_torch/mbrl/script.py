@@ -53,10 +53,14 @@ processes, one per rank, each started with the same arguments and
 (rank 0 listens at the address; ``file:///path`` names a rendezvous file
 instead).  Rank ``i`` runs on card ``i`` modulo the cards present, or on
 the CPU under ``--platform cpu``; the ranks meet through NCCL when each has
-a card of its own and through gloo otherwise.  Only rank 0 writes files,
-and each rank prints one ``[rank]`` line at the end with its kernels'
-launches and rows and its peak device memory.  ``runscripts/mbpo_ks_mesh.sh``'s
-arguments at ``DATA_PARALLEL=2 MODEL_PARALLEL=2`` on one card:
+a card of its own and through gloo otherwise.  Under NCCL every route
+replays CUDA graphs as on one card; under gloo the fits do, and the rest
+runs eagerly (``controller.graph_routes``).  Only rank 0 writes files, and
+each rank prints one ``[rank]`` line at the end with its routes, the graphs
+it captured, its kernels' launches and rows and its peak device memory.
+``runscripts/mbpo_ks_mesh.sh``'s arguments at ``DATA_PARALLEL=2
+MODEL_PARALLEL=2`` (on one card through gloo, on four through NCCL; see
+``parallel/mesh_smoke.py``):
 
     for i in 0 1 2 3; do
       python -m pdecontrol_tpu_torch.mbrl.script --solver pallas \
@@ -249,17 +253,24 @@ def config_from_args(args: argparse.Namespace) -> MBPOConfig:
 
 
 def rank_report(ctl) -> str:
-    """One rank's line: its place, device and backend, its kernels'
-    launches and rows, and its peak device memory."""
+    """One rank's line (a process without a mesh is rank 0 with no
+    backend): its place, device and backend, the routes that may
+    replay graphs and the graphs it captured, its last retrain's
+    ``t_fit_total``, its kernels' launches and rows, and its peak device
+    memory."""
     import torch
     import torch.distributed as dist
 
     from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed
 
     dev = ctl.device
+    mesh = dist.is_available() and dist.is_initialized()
     return "[rank] " + json.dumps({
-        "rank": dist.get_rank(), "device": str(dev), "backend": dist.get_backend(),
+        "rank": dist.get_rank() if mesh else 0, "device": str(dev),
+        "backend": dist.get_backend() if mesh else None,
         "env_rows": [ctl.env_rows.start, ctl.env_rows.stop],
+        "routes": ctl.routes, "graphs": ctl.graph_summary(),
+        "t_fit_total": ctl.logger.summary.get("t_fit_total"),
         "K1": pallas_ks.launch_count, "K1_rows": pallas_ks.rows_launched,
         "K2": pallas_ks_packed.launch_count, "K2_rows": pallas_ks_packed.rows_launched,
         "peak_allocated_mb": (round(torch.cuda.max_memory_allocated(dev) / 1e6, 1)

@@ -13,7 +13,13 @@ The layout decides the rest, never a failure:
     CPU when the caller asks for it;
   * the backend is NCCL when every rank has a card of its own, and gloo
     when ranks share a card or run on the CPU (NCCL refuses two ranks on
-    one card; gloo reduces CUDA tensors through host memory).
+    one card; gloo reduces CUDA tensors through host memory);
+  * the backend decides which routes replay CUDA graphs
+    (``mbrl/controller.py::graph_routes``): a graph captures NCCL's
+    collectives, so under NCCL the fused iteration, the phases and the
+    evaluations replay graphs that hold them; gloo's run on the host, so
+    under gloo those run eagerly.  The surrogate fits hold no collective
+    and replay their graphs under either.
 
 Host-boundary rules the port keeps (as the JAX package's):
 
@@ -33,6 +39,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from pdecontrol_tpu_torch.utils import graphs
 
 
 def rank_device(process_id: int, platform: Optional[str] = None) -> torch.device:
@@ -85,5 +93,9 @@ def is_primary() -> bool:
 
 
 def shutdown() -> None:
+    """Leave the process group, after destroying every CUDA graph of the
+    process (``utils.graphs.release_all``): NCCL destroys no communicator
+    while a graph holds its collectives."""
     if is_initialized():
+        graphs.release_all()
         dist.destroy_process_group()

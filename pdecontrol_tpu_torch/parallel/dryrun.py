@@ -23,8 +23,10 @@ without a mesh beside them, and holds their receipts to the JAX dry run's:
 
 The ranks meet at a free port of this host on the card, and through a
 rendezvous file in a temporary directory on the CPU.  On a host with one
-card all ranks share it, through gloo.  Every process has a wall-clock
-limit; when one fails or runs past it, every process is killed.
+card all ranks share it, through gloo; with a card each they meet through
+NCCL (``parallel/mesh_smoke.py`` runs it so on four cards).  Every process
+has a wall-clock limit; when one fails or runs past it, every process is
+killed.
 """
 
 from __future__ import annotations
@@ -47,8 +49,8 @@ from typing import Dict, List, Optional, Sequence
 # rounds otherwise than the gradient of the whole batch.
 STAGE_TOL = {"collect": 1e-6, "train": 1e-9, "sac": 1e-9}
 # Record fields that read the host's clock or its garbage collector, or the
-# CUDA graphs' memory pool (the one-process run on the card captures graphs;
-# a mesh runs eagerly).
+# CUDA graphs' memory pool (the one-process run and the ranks capture
+# different graphs).
 TIMING = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2",
           "graph_pool_mb", "fit_graph_pool_mb")
 

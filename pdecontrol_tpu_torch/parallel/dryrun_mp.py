@@ -20,7 +20,7 @@ model`` mesh of ``N`` ranks:
 Each of stages 1-3 is also run without the mesh on the rank's own device
 from the same generator state, and the largest gap is recorded.  ``single``
 runs stage 4's ``learn()`` in one process without a mesh (the JAX package's
-single-process reference), on the mesh's eager route.  Every process
+single-process reference), with the phases one after another.  Every process
 writes its receipts as JSON into ``OUTDIR``: digests of what must be equal
 on every rank (the replicated results, the generator's state after each
 stage and after each phase of ``learn()``), the files each run directory
@@ -301,7 +301,10 @@ def stage_learn(rank: int, ranks: int, outdir: str, device) -> Dict:
 
     dp, mp = mesh_shape(ranks)
     run_dir = os.path.join(outdir, f"run_p{rank}")
-    ctl = PDEModelBasedController(learn_config(run_dir, dp, mp, ranks), device=device)
+    # The phases one after another, as in ``single``, so that the trail
+    # sees each of them (under NCCL each replays its graph).
+    ctl = PDEModelBasedController(learn_config(run_dir, dp, mp, ranks, fuse_iteration=False),
+                                  device=device)
     trail = traced_learn(ctl)
     ctl.logger.finish()
     files = files_under(run_dir)
@@ -341,9 +344,8 @@ def single(ranks: int, outdir: str, platform=None) -> None:
 
     device = torch.device("cpu" if platform == "cpu" else "cuda")
     run_dir = os.path.join(outdir, "run_single")
-    # The mesh's route: the eager phases and fit.  A CUDA graph's body runs
-    # its host code at the capture, so the generator's state seen between
-    # its phases is not an eager run's (its stream after the replay is).
+    # The phases one after another, as on the ranks, and the eager fit: the
+    # fused iteration's phases are not seen one by one.
     cfg = learn_config(run_dir, 1, 1, ranks, fuse_iteration=False, fuse_fit=False)
     ctl = PDEModelBasedController(cfg, device=device)
     trail = traced_learn(ctl)

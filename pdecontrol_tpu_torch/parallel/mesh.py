@@ -14,6 +14,14 @@ Every gather is an ``all_reduce`` (sum) of a zero-filled buffer of the
 global size into which each rank wrote its own rows: gloo and NCCL both
 reduce CUDA tensors that way, and it is exact, since ``x + 0 == x`` (up to
 the sign of a zero).
+
+Under NCCL (a card per rank) a CUDA graph captures these collectives, as it
+captures the fused iteration and the phases that call them
+(``mbrl/controller.py``).  So each is synchronous (no ``Work`` outlives
+it), reads nothing on the host, and writes its results in place or into
+tensors of the graph's pool; and ``make_mesh`` runs one collective on each
+of the rank's groups, since NCCL makes a group's communicator at its first
+collective, which it cannot do inside a capture.
 """
 
 from __future__ import annotations
@@ -62,6 +70,12 @@ class Mesh:
 
     def index(self, axis: str) -> int:
         return self.data_index if axis == DATA_AXIS else self.model_index
+
+    @property
+    def backend(self) -> str:
+        """The process group's backend, ``nccl`` or ``gloo``, which decides
+        the routes that replay CUDA graphs (``controller.graph_routes``)."""
+        return dist.get_backend()
 
     def _slice(self, n: int, axis: str) -> slice:
         size = self.size(axis)
@@ -141,7 +155,10 @@ class Mesh:
         return unset[0] == 0
 
     def barrier(self) -> None:
-        dist.barrier()
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
 
 
 def make_mesh(data_parallel: int, model_parallel: int = 1) -> Mesh:
@@ -166,4 +183,13 @@ def make_mesh(data_parallel: int, model_parallel: int = 1) -> Mesh:
             group = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[axis] = group
-    return Mesh(data_parallel, model_parallel, rank, groups)
+    # One collective on each of this rank's groups, eagerly, in the same
+    # order on every rank: NCCL makes a group's communicator there, and a
+    # CUDA graph cannot capture that.
+    mesh = Mesh(data_parallel, model_parallel, rank, groups)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    for axis in (MODEL_AXIS, DATA_AXIS):
+        if mesh.size(axis) > 1:
+            dist.all_reduce(torch.zeros((1,), device=device), group=groups[axis])
+    return mesh

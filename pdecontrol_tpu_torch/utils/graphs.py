@@ -24,22 +24,32 @@ captures after it):
     replay may write its temporaries, so ``run`` hands back a copy of it.
 
 Nothing falls back to running the body eagerly: a capture or replay that
-fails raises.
+fails raises, naming its key and, in a process of a mesh, its rank.  Under
+NCCL a body may hold the mesh's collectives (``parallel/mesh.py``): every
+rank captures the same keys in the same order, and each replay meets the
+same replay on the other ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed
 
 # Modules whose ``launch_count`` and ``rows_launched`` count a hand-written
 # kernel's launches and the rows they stepped.
 KERNEL_MODULES = (pallas_ks, pallas_ks_packed)
+
+
+def on_rank() -> str:
+    """``" on rank i"`` in a process of a mesh, else ``""``: for messages."""
+    return f" on rank {dist.get_rank()}" if dist.is_available() and dist.is_initialized() else ""
 
 
 def copy_into(dst, src) -> None:
@@ -122,6 +132,11 @@ class CapturedGraph:
         return self.output
 
 
+# Every live cache, so that ``release_all`` reaches each before the process
+# group goes (``parallel/distributed.py::shutdown``).
+_CACHES: "weakref.WeakSet[GraphCache]" = weakref.WeakSet()
+
+
 class GraphCache:
     """Captured graphs by key, sharing one memory pool and drawing from
     ``generators``."""
@@ -129,6 +144,13 @@ class GraphCache:
     def __init__(self, generators: Sequence[torch.Generator]):
         self.generators = list(generators)
         self.graphs: Dict[Hashable, CapturedGraph] = {}
+        self._pool = None
+        _CACHES.add(self)
+
+    def release(self) -> None:
+        """Destroy every graph of the cache; a later call of a key captures
+        it anew."""
+        self.graphs.clear()
         self._pool = None
 
     def get(self, key: Hashable):
@@ -193,8 +215,8 @@ class GraphCache:
             try:
                 graph = self.capture(key, body, state())
             except Exception as e:
-                raise RuntimeError(f"capturing {what} {key} as a CUDA graph failed: "
-                                   f"{e}") from e
+                raise RuntimeError(f"capturing {what} {key} as a CUDA graph "
+                                   f"failed{on_rank()}: {e}") from e
             finally:
                 after = [getattr(obj, name) for obj, name in counters]
                 for (obj, name), value in zip(counters, before):
@@ -206,7 +228,18 @@ class GraphCache:
         try:
             out = _copied(graph.replay(state()))
         except Exception as e:
-            raise RuntimeError(f"replaying {what} {key} failed: {e}") from e
+            raise RuntimeError(f"replaying {what} {key} failed{on_rank()}: {e}") from e
         for (obj, name), step in zip(counters, graph.counters):
             setattr(obj, name, getattr(obj, name) + step)
         return out
+
+
+def release_all() -> None:
+    """Destroy the graphs of every live cache once the device has run them.
+    NCCL destroys a communicator only after every graph that holds its
+    collectives is gone: it waits for them, so a process group of NCCL
+    ranks destroyed beside a live graph never returns."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for cache in list(_CACHES):
+        cache.release()

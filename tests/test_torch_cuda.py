@@ -21,8 +21,10 @@ The group after it
 holds each surrogate family's rollout and a Burgers control period on the
 card to the same computation on the CPU (rtol 3e-5, atol 3e-6, the float32
 tolerance of tests/test_env_solvers.py).  The last group runs two rank
-processes of a mesh on the card through gloo: a gather, the sharded collect
-through K1 and a data-parallel SAC update.  Every test here
+processes of a mesh, on one card through gloo and with a card each through
+NCCL: a gather, the sharded collect through K1 and a data-parallel SAC
+update, and under NCCL ``Mesh.mean_`` and ``Mesh.gather`` replayed from a
+CUDA graph; beside it, one NCCL rank's ``all_reduce`` captured on one card.  Every test here
 needs a card
 and skips without one.  This file imports no JAX, so that it runs where JAX
 is not installed:
@@ -867,6 +869,33 @@ def test_burgers_period_on_the_card_matches_the_cpu(dev, objective, batch):
     assert (pallas_ks.launch_count, pallas_ks_packed.launch_count) == before
 
 
+def test_replay_draw_is_reproducible_on_the_card(dev):
+    """The replay's row draw (``data/replay.py::_categorical``) from one
+    generator state gives the same rows in every call, over a world replay
+    of the 4x1 mesh's size (120,000 rows) filled from 4,000 to 40,000 rows.
+    ``torch.multinomial`` on the same weights, and a float ``cumsum`` of
+    their probabilities, are printed beside it: the card's scan sums in an
+    order that varies from call to call."""
+    from pdecontrol_tpu_torch.data import replay as R
+
+    gen = torch.Generator(device=dev)
+    for filled in (4000, 8000, 12000, 16000, 20000, 40000):
+        w = torch.zeros(120000, device=dev)
+        w[:filled] = torch.randint(1, 5, (filled,), device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(1)).float()
+        drawn, multinomial, cumsum = set(), set(), set()
+        for _ in range(40):
+            gen.manual_seed(0)
+            drawn.add(R._categorical(w, 1024, gen).cpu().numpy().tobytes())
+            gen.manual_seed(0)
+            multinomial.add(torch.multinomial(w + 1e-30, 1024, replacement=True,
+                                              generator=gen).cpu().numpy().tobytes())
+            cumsum.add(torch.cumsum(w / w.sum(), 0).cpu().numpy().tobytes())
+        print(f"filled {filled}: distinct over 40 calls: the replay's draw {len(drawn)}, "
+              f"torch.multinomial {len(multinomial)}, float cumsum {len(cumsum)}")
+        assert len(drawn) == 1
+
+
 # ------------------------------------------------------------ the mesh
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
@@ -887,6 +916,37 @@ def two_ranks(tmp_path_factory):
     launch([[sys.executable, script, "cuda", str(i), "2", address, str(out)] for i in range(2)],
            240, str(out))
     return [json.load(open(out / f"cuda{i}.json")) for i in range(2)]
+
+
+def test_mean_and_gather_replayed_from_a_graph_equal_their_eager_calls(two_ranks):
+    """With a card each, the ranks meet through NCCL, whose collectives a
+    CUDA graph captures: ``Mesh.mean_`` and ``Mesh.gather`` in one body,
+    replayed 3 times on fresh inputs, equal an eager call of the body on
+    the same inputs bit for bit on both ranks."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL refuses two ranks on one")
+    for r in two_ranks:
+        assert r["backend"] == "nccl"
+        assert r["graph_collectives"] == [True, True, True]
+
+
+def test_one_nccl_rank_captures_its_all_reduce(dev):
+    """``chip_smoke.py``'s phase 18 (``mesh_smoke.py one``): a process group
+    of one NCCL rank, whose ``dist.all_reduce`` a graph captures and
+    replays 3 times, each replay equal to the eager body bit for bit."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", "pdecontrol_tpu_torch.parallel.mesh_smoke",
+                           "one"], cwd=root, capture_output=True, text=True, timeout=180,
+                          env=dict(os.environ, PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (r["backend"], r["world_size"], r["captured"]) == ("nccl", 1, True)
+    assert r["equal"] == [True, True, True]
 
 
 def test_ranks_take_their_device_and_backend_from_the_layout(two_ranks):

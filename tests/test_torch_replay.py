@@ -130,3 +130,19 @@ def test_samplers_return_admissible_windows():
     assert x.obs.shape == (32,) + OBS and x.rewards.shape == (32,)
     _drawn_from(x.obs.numpy()[:, None],
                 _admissible(trep, 1, lambda f: 0, np.nonzero(fill)[0]))
+
+
+def test_categorical_draw_follows_the_counts():
+    """The rows' draw is proportional to their window counts (an int64
+    inverse CDF), never picks a row without a window, and is uniform when
+    no row has one (the JAX package's ``log(w + 1e-30)`` logits)."""
+    gen = torch.Generator().manual_seed(0)
+    counts = torch.tensor([0.0, 2.0, 0.0, 6.0, 2.0])
+    draws = TR._categorical(counts, 200_000, gen)
+    freq = torch.bincount(draws, minlength=5).double() / draws.numel()
+    np.testing.assert_allclose(freq.numpy(), (counts / counts.sum()).numpy(), atol=5e-3)
+    assert freq[0] == freq[2] == 0
+    again = TR._categorical(counts, 200_000, torch.Generator().manual_seed(0))
+    assert torch.equal(draws, again)
+    uniform = torch.bincount(TR._categorical(torch.zeros(4), 40_000, gen), minlength=4)
+    np.testing.assert_allclose(uniform.numpy() / 40_000, 0.25, atol=1e-2)

@@ -17,12 +17,21 @@ MODE is one of:
     rank's restore of the primary's last snapshot, and a ``--resume`` of the
     primary's run for 2 more iterations; each rank writes
     ``DIR/controller{RANK}.json`` (and rank 0 ``DIR/collect.npz``);
-  * ``cuda``: two ranks on one card through gloo: a gather against local
+  * ``graphs``: on the test's tiny config at 2x2 without snapshots, a
+    ``learn()`` on the routes of the process group's backend (gloo), then
+    one with the backend reported as NCCL, every graph of which a
+    ``RecordingCache`` runs eagerly, noting its key, the mesh collectives
+    its body issued and any host read in it; each rank writes
+    ``DIR/graphs{RANK}.json``;
+  * ``cuda``: two ranks on the cards (through gloo on one card, NCCL on
+    two or more): a gather against local
     concatenation, the sharded collect through K1 against one rank's, a
     SAC update whose averaged gradients leave the networks on the card, and
     200 float32 updates of the flagship's agent at batch 512 with ``SAC(mesh=)``
-    against the same batches and noises in one process (``sac_series``); each
-    rank writes ``DIR/cuda{RANK}.json``.
+    against the same batches and noises in one process (``sac_series``), and,
+    where each rank has a card of its own (NCCL), ``Mesh.mean_`` and
+    ``Mesh.gather`` replayed from a CUDA graph against their eager calls
+    (``graph_collectives``); each rank writes ``DIR/cuda{RANK}.json``.
 """
 
 from __future__ import annotations
@@ -68,6 +77,134 @@ def controller_config(run_dir, data_parallel=1, model_parallel=1, **changes):
 
 # The total steps of the resumed run: 2 iterations more.
 RESUME_TIMESTEPS = 32
+# The config of the ``graphs`` mode: no snapshots, 4 iterations (retrains
+# at 0 and 2) and an evaluation every third, so that iteration 1 runs the
+# fused iteration with its record pulled one iteration late and iteration 3
+# with an evaluation.
+GRAPHS_CONFIG = {"checkpoint_freq": 0, "agent_eval_freq": 3,
+                 "total_timesteps": RESUME_TIMESTEPS}
+
+
+class HostReadError(AssertionError):
+    pass
+
+
+def _adam_step_read() -> bool:
+    """Whether the caller is ``torch.optim``'s read of an Adam step count:
+    on the CPU Adam keeps its step on the host side (``capturable`` needs a
+    card), on the card the port's Adam is capturable and reads nothing."""
+    import traceback
+
+    return any(f.name == "_get_value" and f.filename.endswith(
+        os.path.join("torch", "optim", "optimizer.py")) for f in traceback.extract_stack())
+
+
+def no_host_reads():
+    """A dispatch mode that raises on a read of a tensor's value by the host
+    (``.item()``, ``bool(t)``, ``int(t)``, an index by a 0-d tensor): what a
+    CUDA graph's capture refuses."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class NoHostReads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._local_scalar_dense.default and not _adam_step_read():
+                raise HostReadError("the host read a tensor's value inside a graph's body")
+            return func(*args, **(kwargs or {}))
+
+    return NoHostReads()
+
+
+class CollectiveLog:
+    """Notes each ``all_reduce`` of the mesh while ``active`` as (the
+    ``Mesh`` method that issued it, its axis, shape and dtype)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from pdecontrol_tpu_torch.parallel import mesh as meshlib
+
+        self.calls, self.active, self.op = [], False, None
+        self.axes = {}
+        log, reduce = self, dist.all_reduce
+
+        def all_reduce(tensor, *args, group=None, **kwargs):
+            if log.active:
+                log.calls.append([log.op, log.axes.get(id(group)), list(tensor.shape),
+                                  str(tensor.dtype)])
+            return reduce(tensor, *args, group=group, **kwargs)
+
+        dist.all_reduce = all_reduce
+        for name in ("gather", "gather_rows_", "mean_", "all"):
+            method = getattr(meshlib.Mesh, name)
+
+            def wrapped(mesh, *args, _method=method, _name=name, **kwargs):
+                log.axes.update({id(g): axis for axis, g in mesh.groups.items()})
+                log.op = _name
+                try:
+                    return _method(mesh, *args, **kwargs)
+                finally:
+                    log.op = None
+
+            setattr(meshlib.Mesh, name, wrapped)
+
+
+class RecordingCache:
+    """``GraphCache``'s interface on the CPU: nothing is captured, every
+    body runs eagerly, and ``keys`` lists the key of every graph asked for.
+    ``bodies`` holds, for each body that ran, its key and the mesh
+    collectives it issued (with a ``CollectiveLog``); under
+    ``forbid_host_reads`` a body raises ``HostReadError`` where it reads a
+    value on the host."""
+
+    def __init__(self, generators, log=None, forbid_host_reads=False):
+        self.generators = list(generators)
+        self.keys, self.bodies = [], []
+        self.graphs = {}
+        self.log, self.forbid_host_reads = log, forbid_host_reads
+
+    def get(self, key):
+        return None
+
+    def capture(self, key, body, state):
+        self.keys.append(key)
+        import types
+
+        return types.SimpleNamespace(seconds=0.0, pool_bytes=0)
+
+    def run(self, key, body, state, what, counters=(), captured=None):
+        self.keys.append(key)
+        return self.body(key, body)
+
+    def body(self, key, fn):
+        """``fn()`` as the body of the graph ``key``."""
+        import contextlib
+
+        start = 0 if self.log is None else len(self.log.calls)
+        if self.log is not None:
+            self.log.active = True
+        try:
+            with no_host_reads() if self.forbid_host_reads else contextlib.nullcontext():
+                out = fn()
+        finally:
+            if self.log is not None:
+                self.log.active = False
+        self.bodies.append([list(key), [] if self.log is None else self.log.calls[start:]])
+        return out
+
+
+def record_graphs(ctl, log=None):
+    """Put a ``RecordingCache`` in place of ``ctl``'s graphs (every route
+    of ``graph_routes``), the fit's without the host-read check (its
+    functional transforms run under no dispatch mode), and run the fused
+    body as the body of its graph.  Returns the phases' and fused
+    iteration's cache and the fit's."""
+    phases = RecordingCache([ctl.gen], log, forbid_host_reads=True)
+    fit = RecordingCache([ctl.gen], log)
+    ctl.graphs, ctl.trainer.graphs = phases, fit
+    fused = ctl._fused_body
+    ctl._fused_body = lambda nsteps, horizon: phases.body(
+        ("fused", nsteps, horizon), lambda: fused(nsteps, horizon))
+    return phases, fit
 
 
 def run_sharded(rank, outdir, device):
@@ -165,6 +302,34 @@ def run_controller(rank, outdir, device):
                    "generator": resumed.gen.get_state().tolist()[:64]}, f)
 
 
+def run_graphs(rank, outdir, device):
+    from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController, graph_routes
+    from pdecontrol_tpu_torch.parallel import mesh as meshlib
+
+    def make(name):
+        cfg = controller_config(os.path.join(outdir, f"{name}_p{rank}"), 2, 2,
+                                **GRAPHS_CONFIG)
+        return PDEModelBasedController(cfg, device=device)
+
+    out = {"backend": torch.distributed.get_backend()}
+    ctl = make("gloo")
+    out["routes"] = {"gloo": ctl.routes, "debug_nans": graph_routes(ctl.mesh, True)}
+    ctl.learn()
+    ctl.logger.finish()
+
+    log = CollectiveLog()
+    meshlib.Mesh.backend = property(lambda mesh: "nccl")
+    ctl = make("nccl")
+    out["routes"]["nccl"] = ctl.routes
+    phases, fit = record_graphs(ctl, log)
+    ctl.learn()
+    ctl.logger.finish()
+    out.update(keys=[list(k) for k in phases.keys + fit.keys], bodies=phases.bodies,
+               fit_bodies=fit.bodies)
+    with open(os.path.join(outdir, f"graphs{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
 def run_cuda(rank, outdir, device):
     from pdecontrol_tpu_torch.data.types import Sample
     from pdecontrol_tpu_torch.envs.kuramoto import KuramotoSivashinsky
@@ -232,8 +397,49 @@ def run_cuda(rank, outdir, device):
     out["sac_qf_gap"] = float((m["qf_loss"] - ref_m["qf_loss"]).abs())
     out["sac_params"] = float(sum(p.double().sum() for p in nets))
     out.update(sac_series(mesh, device))
+    if out["backend"] == "nccl":
+        out["graph_collectives"] = graph_collectives(mesh, device)
     with open(os.path.join(outdir, f"cuda{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def graph_collectives(mesh, device, replays=3):
+    """``Mesh.mean_`` and ``Mesh.gather`` in one body captured through
+    ``GraphCache`` and replayed ``replays`` times, each on fresh inputs and
+    held bit for bit to an eager call of the body on the same inputs.
+    Returns whether each replay equalled it."""
+    from pdecontrol_tpu_torch.utils.graphs import GraphCache
+
+    gen = torch.Generator(device=device).manual_seed(10 + mesh.rank)
+    grads = [torch.empty((256, 68), device=device), torch.empty((256,), device=device)]
+    rows = [torch.empty((4, 3, 64), device=device),
+            torch.empty((4,), dtype=torch.int32, device=device)]
+    state = grads + rows
+
+    def body():
+        mesh.mean_(grads)
+        return mesh.gather(rows)
+
+    def fill():
+        for t in grads + rows[:1]:
+            t.normal_(generator=gen)
+        rows[1].random_(0, 1000, generator=gen)
+        return [t.clone() for t in state]
+
+    cache = GraphCache([])
+    fill()
+    cache.run("collectives", body, lambda: state, "the collectives")  # eager, then captured
+    equal = []
+    for _ in range(replays):
+        inputs = fill()
+        want = body()
+        want_grads = [g.clone() for g in grads]
+        for t, x in zip(state, inputs):
+            t.copy_(x)
+        got = cache.run("collectives", body, lambda: state, "the collectives")
+        torch.cuda.synchronize(device)
+        equal.append(all(torch.equal(a, b) for a, b in zip(got + grads, want + want_grads)))
+    return equal
 
 
 def sac_series(mesh, device, updates=200, batch=512):
@@ -288,7 +494,7 @@ def sac_series(mesh, device, updates=200, batch=512):
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("mode", choices=("sharded", "controller", "cuda"))
+    p.add_argument("mode", choices=("sharded", "controller", "graphs", "cuda"))
     p.add_argument("rank", type=int)
     p.add_argument("ranks", type=int)
     p.add_argument("address")
@@ -300,8 +506,8 @@ def main(argv=None):
 
     device = distributed.initialize(args.address, args.ranks, args.rank, args.platform)
     try:
-        {"sharded": run_sharded, "controller": run_controller, "cuda": run_cuda}[args.mode](
-            args.rank, args.outdir, device)
+        {"sharded": run_sharded, "controller": run_controller, "graphs": run_graphs,
+         "cuda": run_cuda}[args.mode](args.rank, args.outdir, device)
     finally:
         distributed.shutdown()
 
