@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen phases, each timed:
+Nineteen phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
@@ -154,16 +154,35 @@ Eighteen phases, each timed:
      refuses two ranks on one card): a body that calls
      ``dist.all_reduce`` is captured through ``GraphCache`` and replayed 3
      times on fresh inputs, each replay equal to the eager body bit for
-     bit (``mesh_smoke.py one``).
+     bit (``mesh_smoke.py one``);
+ 19. what only a long run reaches — ``MAIN_ARGS`` for 10 iterations with
+     the horizon climbing from 3 to 7 (two iterations a horizon), a world
+     replay of 2 iterations' rollouts that wraps in iteration 2, and a
+     trainer whose ``max_steps`` lie above ``min_steps`` with patience 2 /
+     1 (see ``LONG_ARGS``), on three routes: the default, ``--no_fuse_iteration
+     --no_fuse_fit`` and a controller built with ``graphs=False``.  Every
+     route must launch K1 ``LONG_K1_LAUNCHES`` times and run the horizons
+     of the schedule; the default route must capture and replay a fused
+     graph for each of the horizons 3-7 and replay the fit's graphs, the
+     second a ``("world", horizon, rounds)`` graph for each; each route's
+     world replay must pass its ``num_rows`` (its ``next_row`` is
+     printed); the other two routes' streams must equal the default's in
+     every non-clock field, and their steps per member at each retrain
+     and their members' parameters and Adam state after the run (the
+     graphed fit against ``--no_fuse_fit``) the default's exactly; at one
+     retrain at least a member must stop before the others, and each
+     retrain's share of masked member-steps is printed, as is the default
+     route's dispatch to pull by horizon.
 
-Every retrain of the MBPO paths (phases 3, 6 and 8 to 11 and 13) runs the
+Every retrain of the MBPO paths (phases 3, 6 and 8 to 11, 13 and 19) runs the
 default lock-step fit, its TBPTT and validation steps replayed from CUDA
 graphs: each retrain record must carry that route's fields
 (``t_fit_prep``, ``t_fit_dispatch``, ``t_fit_ready``), and each run's first
-retrain the fit's captures (``t_fit_capture``); phase 13's controller
-built with ``graphs=False`` fits eagerly.
+retrain the fit's captures (``t_fit_capture``); the controllers of phases
+13 and 19 built with ``graphs=False`` fit eagerly, and phase 19's
+``--no_fuse_fit`` route too (``t_fit_val`` in place of ``t_fit_ready``).
 
-Every path of phases 3, 6 to 13 and 17 runs with the kernels' launch counts
+Every path of phases 3, 6 to 13, 17 and 19 runs with the kernels' launch counts
 set to 0 just before it, and they are read just after it (a rank process of
 phase 17 starts at 0 and prints its counts at its end); K1 runs the
 reset-pool transient of every KS path.  The script prints the card's name and power
@@ -197,6 +216,7 @@ RUN_DIR_SAC_ROUTES = os.path.join(HERE, "runs", "chip_smoke_sac_routes")
 RUN_DIR_FIT = os.path.join(HERE, "runs", "chip_smoke_fit")
 RUN_DIR_MESH = os.path.join(HERE, "runs", "chip_smoke_mesh")
 RUN_DIR_MESH_ONE = os.path.join(HERE, "runs", "chip_smoke_mesh_1x1")
+RUN_DIR_LONG = os.path.join(HERE, "runs", "chip_smoke_long")
 KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
@@ -333,6 +353,45 @@ MESH_OTHER_ROWS = 920 * 64 + 800 * 10
 # iteration 0's SAC updates at rtol 2e-4 / atol 1e-7, the SAC keys printed
 # beside ``sac_reorder_gaps``) is ``pdecontrol_tpu_torch/parallel/mesh_smoke.py``'s,
 # which holds the same arguments on four cards through NCCL.
+
+# Phase 19, what only a long run reaches: MAIN_ARGS for 10 iterations
+# (total_timesteps 5100) with retrains at iterations 0 and 5
+# (surrogate_train_freq 50) and these changes.  The horizon climbs from 3 to
+# 7 over iterations 0-8, two iterations a horizon (3, 3, 4, 4, ..., 7, 7):
+# the fused graph of a horizon is captured at its first non-retrain
+# iteration and replayed there, and under --no_fuse_iteration the first
+# iteration of a horizon captures its ("world", horizon, rounds) graph and
+# the second replays it.  The world replay keeps 2 iterations' rollouts
+# (model_buffer_store_iterations 30 -> 2: 2,000 rows of the 1,000 an
+# iteration adds), so it wraps in iteration 2 and every later iteration
+# writes and draws from a wrapped ring inside its graphs.  The trainer
+# stops on patience 2 / 1 after min_steps 6 / 3, below max_steps 24, so
+# that members stop at different epochs (the flagship: patience 10 / 5,
+# min_steps 250 / 50, max_steps 2000 / 250).  No snapshots and no
+# artifacts.
+LONG_ITERATIONS = 10
+LONG_HORIZONS = (3, 4, 5, 6, 7)
+LONG_SCHEDULE = {"scheduler": "LinearScheduler", "steptype": "iteration",
+                 "start": 0, "stop": 8, "vmin": 3, "vmax": 7}
+LONG_ARGS = with_args(
+    MAIN_ARGS, run_dir=RUN_DIR_LONG, total_timesteps=str(5000 + 10 * LONG_ITERATIONS),
+    surrogate_train_freq="50", checkpoint_freq="0",
+    rollout_length_schedule=json.dumps(LONG_SCHEDULE),
+    training=json.dumps({
+        "tau": 5,
+        "initial": {"tbtt": 10, "patience": 2, "batch_size": 64},
+        "iterations": {"tbtt": 10, "patience": 1, "batch_size": 64}}),
+    trainer=json.dumps({"initial": {"min_steps": 6, "max_steps": 24},
+                        "iterations": {"min_steps": 3, "max_steps": 24}}),
+) + ["--model_buffer_store_iterations", "2", "--logging_freq", "0"]
+# The three routes, as phase 13's; the second also fits eagerly
+# (--no_fuse_fit), so that its fits hold the default route's graphed fits.
+LONG_ROUTES = {"default": ([], True),
+               "--no_fuse_iteration --no_fuse_fit": (["--no_fuse_iteration",
+                                                      "--no_fuse_fit"], True),
+               "graphs=False": (["--no_fuse_iteration"], False)}
+# K1 on each route: the main path's but for one collect launch an iteration.
+LONG_K1_LAUNCHES = 920 + 500 + 400 + 400 + LONG_ITERATIONS
 
 # runscripts/mbpo_ks_bf16.sh: the same run through K2 at bf16_3x, with
 # agent_eval_freq 50 -> 5, so that iteration 5 evaluates on the fused route
@@ -930,13 +989,14 @@ def check_outputs(run_dir, steps, evals=(0,)):
     print(f"   checkpoints {names}; plots {sorted(plots)}", flush=True)
 
 
-def check_route(records, fused, graphs=True):
+def check_route(records, fused, graphs=True, eager_fit=False):
     """Each iteration's fields say which route ran it: a retrain, or every
     iteration under ``--no_fuse_iteration``, times its phases one after
     another; any other iteration is dispatched as one body and pulled late
     (``t_ready``) or, on an evaluation iteration, at once (``t_fused``).
     With graphs, iteration 0 captures its phases' graphs (``t_capture``);
-    without, nothing captures."""
+    without, nothing captures.  ``eager_fit``: the run's fit is
+    ``--no_fuse_fit``'s."""
     for r in records:
         if not fused or "t_surrogate" in r:
             want, banned = {"t_collect", "t_imagine", "t_policy", "t_pull"}, "t_dispatch"
@@ -951,15 +1011,22 @@ def check_route(records, fused, graphs=True):
         raise AssertionError(f"the graphs were captured at iterations {captured}")
     if not graphs and captured:
         raise AssertionError(f"the run without graphs captured at iterations {captured}")
-    check_fit_route(records, graphs)
+    check_fit_route(records, graphs, eager_fit)
 
 
-def check_fit_route(records, graphs=True):
+def check_fit_route(records, graphs=True, eager_fit=False):
     """Every retrain ran the default lock-step fit, its steps from graphs
-    captured at the run's first retrain (or eagerly, without graphs)."""
+    captured at the run's first retrain (or eagerly, without graphs), or
+    with ``eager_fit`` the lock-step fit of ``--no_fuse_fit``, which
+    captures nothing."""
     retrains = [r for r in records if "t_surrogate" in r]
+    if eager_fit:
+        want, banned = FIT_FIELDS - {"t_fit_ready"} | {"t_fit_val"}, "t_fit_ready"
+        graphs = False
+    else:
+        want, banned = FIT_FIELDS, "t_fit_val"
     for r in retrains:
-        if not FIT_FIELDS <= set(r) or "t_fit_val" in r:
+        if not want <= set(r) or banned in r:
             raise AssertionError(f"iteration {r['iteration']}'s retrain ran another fit "
                                  f"route: {sorted(k for k in r if k.startswith('t_fit'))}")
     if retrains and ("t_fit_capture" in retrains[0]) != graphs:
@@ -1714,6 +1781,156 @@ def run_nccl_one():
         raise AssertionError(f"the NCCL capture: {r}")
 
 
+def long_horizon(iteration):
+    """``LONG_SCHEDULE``'s horizon at an iteration, as the controller
+    truncates it."""
+    sch = LONG_SCHEDULE
+    frac = min(max((iteration - sch["start"]) / (sch["stop"] - sch["start"]), 0.0), 1.0)
+    return int(sch["vmin"] + frac * (sch["vmax"] - sch["vmin"]))
+
+
+def run_long_route(args, graphs):
+    """One route of phase 19: ``learn()`` of a controller of ``args``,
+    with each retrain's steps per member noted (the members' global steps
+    before and after it).  Returns what the phase compares."""
+    import torch
+
+    ctl = build_controller(args, graphs=graphs)
+    fits = []
+    update = ctl.update_surrogates
+
+    def noted_update():
+        before = ctl.fit_state.global_step.tolist()
+        logs = update()
+        fits.append([b - a for a, b in zip(before, ctl.fit_state.global_step.tolist())])
+        return logs
+
+    ctl.update_surrogates = noted_update
+    t = time.perf_counter()
+    try:
+        ctl.learn()
+    finally:
+        ctl.logger.finish()
+    wall = time.perf_counter() - t
+    st = ctl.fit_state
+    out = {
+        "wall": wall, "fits": fits, "graphs": ctl.graph_summary(),
+        "world_rows": (int(ctl.world_replay.next_row), ctl.world_replay.num_rows),
+        "fit_state": {k: getattr(st, k).clone() for k in
+                      ("params", "exp_avg", "exp_avg_sq", "count", "global_step")},
+        "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
+    }
+    del ctl
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_long_graphs(out):
+    """The default route captured a fused graph for every horizon of
+    ``LONG_HORIZONS`` and replayed each, and the fit's graphs; the phase
+    route a ``("world", horizon, rounds)`` graph for each, replayed."""
+    def by_horizon(label, route, key_horizon):
+        got = out[label]["graphs"].get(route, {"keys": [], "replays": [], "t_capture": 0.0,
+                                               "graph_pool_mb": 0.0})
+        replays = {key_horizon(k): n for k, n in zip(got["keys"], got["replays"])}
+        replays.pop(None, None)
+        if sorted(replays) != list(LONG_HORIZONS) or min(replays.values()) < 1:
+            raise AssertionError(f"{label}: the {route} graphs by horizon were replayed "
+                                 f"{replays} times; every horizon of {LONG_HORIZONS} must "
+                                 f"be captured and replayed")
+        print(f"   {label}: {route} graphs by horizon, replays {json.dumps(replays)}; "
+              f"captures {got['t_capture']:.2f} s, pool +{got['graph_pool_mb']:.1f} MB",
+              flush=True)
+
+    by_horizon("default", "fused", lambda k: k[1] if isinstance(k[0], int) else None)
+    by_horizon("--no_fuse_iteration --no_fuse_fit", "phases",
+               lambda k: k[1] if k[0] == "world" else None)
+    fit = out["default"]["graphs"].get("fit", {"keys": [], "replays": []})
+    if not fit["replays"] or min(fit["replays"]) < 1:
+        raise AssertionError(f"the default route's fit graphs: {fit}")
+    print(f"   default: fit graphs {fit['keys']}, replays {fit['replays']}", flush=True)
+
+
+def run_long():
+    """Phase 19: what only a long run reaches (see ``LONG_ARGS``) on the
+    three routes; their streams, fits and world replays must agree."""
+    import torch
+
+    out = {}
+    for label, (flags, graphs) in LONG_ROUTES.items():
+        run_dir = os.path.join(RUN_DIR_LONG, label.replace("--", "").replace(" ", "_")
+                               .replace("=", "_"))
+        shutil.rmtree(run_dir, ignore_errors=True)
+        torch.cuda.reset_peak_memory_stats()
+        route, counts = counted_run(label, lambda: run_long_route(
+            with_args(LONG_ARGS, run_dir=run_dir) + flags, graphs))
+        if counts != {"K1": LONG_K1_LAUNCHES, "K2": 0}:
+            raise AssertionError(f"the {label} route launched {counts}, expected K1 "
+                                 f"{LONG_K1_LAUNCHES} times and K2 never")
+        records, _ = check_records(os.path.join(run_dir, "metrics.jsonl"), METRICS)
+        iters = [r for r in records if "iteration" in r]
+        horizons = [r["horizon"] for r in iters]
+        if horizons != [long_horizon(i) for i in range(LONG_ITERATIONS)]:
+            raise AssertionError(f"the {label} route ran the horizons {horizons}")
+        check_route(iters, fused=not flags, graphs=graphs, eager_fit="--no_fuse_fit" in flags)
+        next_row, num_rows = route["world_rows"]
+        if next_row <= num_rows:
+            raise AssertionError(f"the {label} route's world replay did not wrap: next_row "
+                                 f"{next_row}, {num_rows} rows")
+        route["records"] = records
+        out[label] = route
+        print(f"   {label}: {route['wall']:.2f} s for {LONG_ITERATIONS} iterations, world "
+              f"replay next_row {next_row} of {num_rows} rows, peak allocated "
+              f"{route['peak_mb']:.1f} MB", flush=True)
+
+    check_long_graphs(out)
+    default = out["default"]
+
+    def strip(r):
+        return {k: v for k, v in r.items() if k not in CLOCK_FIELDS and not k.startswith("t_")}
+
+    for label, route in out.items():
+        if label == "default":
+            continue
+        a, b = default["records"], route["records"]
+        differ = [(x.get("iteration"), k, sx[k], sy.get(k))
+                  for x, y in zip(a, b) for sx, sy in [(strip(x), strip(y))]
+                  for k in sx.keys() | sy.keys() if sx.get(k) != sy.get(k)]
+        if differ or len(a) != len(b):
+            raise AssertionError(f"the default and {label} streams differ: {differ[:10]}")
+        if route["fits"] != default["fits"] or route["world_rows"] != default["world_rows"]:
+            raise AssertionError(f"{label}: member steps {route['fits']}, world rows "
+                                 f"{route['world_rows']}; the default's {default['fits']}, "
+                                 f"{default['world_rows']}")
+        differ = [k for k, v in default["fit_state"].items()
+                  if not torch.equal(v, route["fit_state"][k])]
+        if differ:
+            raise AssertionError(f"the default route's graphed fits and {label}'s differ in "
+                                 f"{differ}")
+        print(f"   default and {label} equal: all {sum(len(strip(r)) for r in a)} non-clock "
+              f"fields of {len(a)} records, the members' steps, parameters and Adam state",
+              flush=True)
+
+    stopped = 0
+    for i, steps in enumerate(default["fits"]):
+        m, most = len(steps), max(steps)
+        stopped += min(steps) < most
+        print(f"   retrain {i}: member steps {steps}; {100 * (1 - sum(steps) / (m * most)):.2f}% "
+              f"of the {m * most} computed member-steps were of members already stopped",
+              flush=True)
+    if not stopped:
+        raise AssertionError(f"no member stopped before the others: {default['fits']}")
+    # A record's t_ready spans the next iteration's dispatch, and so its
+    # capture where it made one: those are left out.
+    pulls = {}
+    records = default["records"]
+    for r, nxt in zip(records, records[1:]):
+        if "t_dispatch" in r and "t_ready" in r and "t_capture" not in nxt:
+            pulls.setdefault(r["horizon"], []).append(round(r["t_dispatch"] + r["t_ready"], 4))
+    print(f"   default route, dispatch to pull by horizon where the next iteration did not "
+          f"capture (s): {json.dumps(pulls)}", flush=True)
+
+
 def main() -> int:
     start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "pdecontrol_tpu_torch")):
@@ -1823,6 +2040,11 @@ def main() -> int:
     done("18 one NCCL rank, its all_reduce captured", t0)
     print(f"== phases 15-18: {time.perf_counter() - t15:.2f} s; phases 1-18: "
           f"{time.perf_counter() - start:.2f} s in all", flush=True)
+
+    t0 = phase("19 what only a long run reaches")
+    run_long()
+    done("19 what only a long run reaches", t0)
+    print(f"== phases 1-19: {time.perf_counter() - start:.2f} s in all", flush=True)
 
     print(json.dumps({"kernels": [
         {

@@ -1189,6 +1189,11 @@ class PDEModelBasedController:
             self.logger.log({"world_return_mean": wmean, "world_return_std": wstd},
                             commit=False)
             timings["t_eval"] = round(time.perf_counter() - t, 4)  # ends in pulls
+            if self.primary and self.device.type == "cuda":
+                print(f"[memory] iteration {self.iteration}: peak allocated "
+                      f"{torch.cuda.max_memory_allocated(self.device) / 1e6:.1f} MB, "
+                      f"reserved {torch.cuda.memory_reserved(self.device) / 1e6:.1f} MB",
+                      flush=True)
 
         self._commit_record({
             "iteration": self.iteration,
@@ -1203,15 +1208,17 @@ class PDEModelBasedController:
 
     def graph_summary(self) -> Dict[str, Dict]:
         """The CUDA graphs this controller captured, by route (``fused``,
-        ``phases``, ``fit``): their keys, their capture seconds and what
-        they added to the shared pool."""
+        ``phases``, ``fit``): their keys and each key's replays, their
+        capture seconds and what they added to the shared pool."""
         cache = self.graphs or self.trainer.graphs
         out: Dict[str, Dict] = {}
         for key, graph in ({} if cache is None else cache.graphs).items():
             route = ("fused" if isinstance(key[0], int)
                      else "fit" if key[0].startswith("fit") else "phases")
-            r = out.setdefault(route, {"keys": [], "t_capture": 0.0, "graph_pool_mb": 0.0})
+            r = out.setdefault(route, {"keys": [], "replays": [], "t_capture": 0.0,
+                                       "graph_pool_mb": 0.0})
             r["keys"].append(list(key))
+            r["replays"].append(graph.replays)
             r["t_capture"] = round(r["t_capture"] + graph.seconds, 4)
             r["graph_pool_mb"] = round(r["graph_pool_mb"] + graph.pool_bytes / 1e6, 3)
         return out

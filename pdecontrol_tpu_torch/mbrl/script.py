@@ -55,9 +55,12 @@ instead).  Rank ``i`` runs on card ``i`` modulo the cards present, or on
 the CPU under ``--platform cpu``; the ranks meet through NCCL when each has
 a card of its own and through gloo otherwise.  Under NCCL every route
 replays CUDA graphs as on one card; under gloo the fits do, and the rest
-runs eagerly (``controller.graph_routes``).  Only rank 0 writes files, and
-each rank prints one ``[rank]`` line at the end with its routes, the graphs
-it captured, its kernels' launches and rows and its peak device memory.
+runs eagerly (``controller.graph_routes``).  Only rank 0 writes files.
+Each rank, and a run without a mesh, prints one ``[rank]`` line at the end
+with its routes, the graphs it captured, its replays' ring positions, its
+kernels' launches and rows and its peak device memory; on the GPU every
+evaluation iteration prints a ``[memory]`` line with the peak allocated so
+far.
 ``runscripts/mbpo_ks_mesh.sh``'s arguments at ``DATA_PARALLEL=2
 MODEL_PARALLEL=2`` (on one card through gloo, on four through NCCL; see
 ``parallel/mesh_smoke.py``):
@@ -256,8 +259,9 @@ def rank_report(ctl) -> str:
     """One rank's line (a process without a mesh is rank 0 with no
     backend): its place, device and backend, the routes that may
     replay graphs and the graphs it captured, its last retrain's
-    ``t_fit_total``, its kernels' launches and rows, and its peak device
-    memory."""
+    ``t_fit_total``, each replay's ``next_row`` beside its ``num_rows``
+    (past it, the ring has wrapped), its kernels' launches and rows, and
+    its peak device memory."""
     import torch
     import torch.distributed as dist
 
@@ -271,6 +275,8 @@ def rank_report(ctl) -> str:
         "env_rows": [ctl.env_rows.start, ctl.env_rows.stop],
         "routes": ctl.routes, "graphs": ctl.graph_summary(),
         "t_fit_total": ctl.logger.summary.get("t_fit_total"),
+        "replay_rows": [int(ctl.replay.next_row), ctl.replay.num_rows],
+        "world_rows": [int(ctl.world_replay.next_row), ctl.world_replay.num_rows],
         "K1": pallas_ks.launch_count, "K1_rows": pallas_ks.rows_launched,
         "K2": pallas_ks_packed.launch_count, "K2_rows": pallas_ks_packed.rows_launched,
         "peak_allocated_mb": (round(torch.cuda.max_memory_allocated(dev) / 1e6, 1)
@@ -308,8 +314,7 @@ def main(argv=None) -> int:
         finally:
             torch.autograd.set_detect_anomaly(anomaly)
             mbpo.logger.finish()
-        if distributed.is_initialized():
-            print(rank_report(mbpo), flush=True)
+        print(rank_report(mbpo), flush=True)
         return 0
     finally:
         distributed.shutdown()

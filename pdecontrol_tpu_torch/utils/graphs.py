@@ -119,12 +119,14 @@ class CapturedGraph:
     pool_bytes: int  # what the capture added to the shared pool
     rows: Dict[object, int] = dataclasses.field(default_factory=dict)  # module -> rows per replay
     counters: List[int] = dataclasses.field(default_factory=list)  # host counters per replay
+    replays: int = 0  # the replays so far
 
     def replay(self, state: Sequence[torch.Tensor]) -> torch.Tensor:
         if [t.data_ptr() for t in state] != self.addresses:
             raise RuntimeError("the state of a captured CUDA graph moved since its "
                                "capture: it must be updated in place")
         self.graph.replay()
+        self.replays += 1
         for module, n in self.launches.items():
             module.launch_count += n
         for module, n in self.rows.items():

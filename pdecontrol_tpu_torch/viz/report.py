@@ -4,26 +4,30 @@
 
 A copy of ``pdecontrol_tpu.viz.report`` (numpy, matplotlib and json only),
 kept in the port so that importing it never runs the JAX package's
-``__init__``; both packages write the same ``metrics.jsonl`` records.
+``__init__``; both packages write the same ``metrics.jsonl`` records.  The
+port's copy also reads a ``metrics.jsonl.gz`` (the layout of ``results/``),
+and imports matplotlib only to render, so that ``summary`` runs on a host
+without it (``viz/long_run.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
 import os
 import sys
 
 import numpy as np
 
-import matplotlib
-
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-
 
 def load(run_dir: str):
+    """The records of ``metrics.jsonl``, or of ``metrics.jsonl.gz`` where
+    only that is kept (``results/``)."""
     path = os.path.join(run_dir, "metrics.jsonl")
+    if not os.path.exists(path) and os.path.exists(path + ".gz"):
+        with gzip.open(path + ".gz", "rt") as f:
+            return [json.loads(l) for l in f]
     return [json.loads(l) for l in open(path)]
 
 
@@ -36,7 +40,24 @@ def series(recs, key, x_key="num_steps_sampled"):
     return np.asarray(xs), np.asarray(ys)
 
 
+def summary(recs) -> dict:
+    _, ev = series(recs, "eval_return_mean")
+    return {
+        "iterations": recs[-1].get("iteration"),
+        "env_steps": recs[-1].get("num_steps_sampled"),
+        "wall_time_s": recs[-1].get("time"),
+        "eval_return_first": float(ev[0]) if len(ev) else None,
+        "eval_return_best": float(np.max(ev)) if len(ev) else None,
+        "eval_return_last": float(ev[-1]) if len(ev) else None,
+    }
+
+
 def render(run_dir: str, out: str) -> dict:
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     recs = load(run_dir)
     os.makedirs(out, exist_ok=True)
 
@@ -74,18 +95,10 @@ def render(run_dir: str, out: str) -> dict:
     fig.savefig(os.path.join(out, "learning_curves.png"), dpi=120)
     plt.close(fig)
 
-    ex, ev = series(recs, "eval_return_mean")
-    summary = {
-        "iterations": recs[-1].get("iteration"),
-        "env_steps": recs[-1].get("num_steps_sampled"),
-        "wall_time_s": recs[-1].get("time"),
-        "eval_return_first": float(ev[0]) if len(ev) else None,
-        "eval_return_best": float(np.max(ev)) if len(ev) else None,
-        "eval_return_last": float(ev[-1]) if len(ev) else None,
-    }
+    result = summary(recs)
     with open(os.path.join(out, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    return summary
+        json.dump(result, f, indent=2)
+    return result
 
 
 def main(argv=None) -> int:
@@ -93,8 +106,7 @@ def main(argv=None) -> int:
     p.add_argument("--run_dir", required=True)
     p.add_argument("--out", required=True)
     args = p.parse_args(argv)
-    summary = render(args.run_dir, args.out)
-    print(json.dumps(summary, indent=2))
+    print(json.dumps(render(args.run_dir, args.out), indent=2))
     return 0
 
 

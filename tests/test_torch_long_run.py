@@ -1,0 +1,196 @@
+"""What only a long MBPO run reaches, at a tiny size on the CPU: the horizon
+climbing from 3 to 7, a world replay that wraps, and a retrain in which
+members stop at different epochs (``chip_smoke.py`` phase 19 runs the same
+changes at the flagship's widths on the card).  The default route (the
+fused iteration, the lock-step fit) and ``--no_fuse_iteration --no_fuse_fit``
+must agree in every field of every record that does not read the clock, in
+each retrain's steps per member, and in the members' parameters and Adam
+state; the port's horizons over the flagship's first 250 iterations must be
+the JAX package's."""
+
+import gzip
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from pdecontrol_tpu.train.schedulers import Scheduler as JScheduler
+from pdecontrol_tpu_torch.mbrl import script
+from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController
+from pdecontrol_tpu_torch.viz import long_run
+
+from .test_torch_slice import SMOKE_ARGS
+
+ITERATIONS = 10
+HORIZONS = [3, 3, 4, 4, 5, 5, 6, 6, 7, 7]
+# runscripts/mbpo_ks.sh's --rollout_length_schedule.
+FLAGSHIP_SCHEDULE = {"scheduler": "LinearScheduler", "steptype": "iteration",
+                     "start": 0, "stop": 200, "vmin": 3, "vmax": 7}
+
+
+def _with(args, **changes):
+    out = list(args)
+    for flag, value in changes.items():
+        out[out.index("--" + flag) + 1] = value
+    return out
+
+
+# SMOKE_ARGS (2 envs, 2 samples an iteration) for 10 iterations with
+# retrains at 0 and 5, the horizon climbing 3 -> 7 over iterations 0-8, a
+# world replay of 2 iterations' rollouts (8 rows of the 4 an iteration
+# adds, wrapped in iteration 2), and patience 2 / 1 after min_steps 2 / 1,
+# below max_steps 12.
+ARGS = _with(
+    SMOKE_ARGS, total_timesteps=str(8 + 2 * ITERATIONS), surrogate_train_freq="10",
+    rollout_length_schedule=json.dumps({"scheduler": "LinearScheduler",
+                                        "steptype": "iteration", "start": 0, "stop": 8,
+                                        "vmin": 3, "vmax": 7}),
+    training=json.dumps({"tau": 2, "initial": {"tbtt": 4, "patience": 2, "batch_size": 4},
+                         "iterations": {"tbtt": 4, "patience": 1, "batch_size": 4}}),
+    trainer=json.dumps({"initial": {"min_steps": 2, "max_steps": 12},
+                        "iterations": {"min_steps": 1, "max_steps": 12}}),
+    num_dynamics_models="3",
+) + ["--model_buffer_store_iterations", "2", "--logging_freq", "0"]
+ROUTES = {"default": [], "unfused": ["--no_fuse_iteration", "--no_fuse_fit"]}
+# Fields of a record that read the host's clock or its garbage collector.
+WALL_CLOCK = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2")
+
+
+def _controller(run_dir, *flags):
+    args = script.build_parser().parse_args(ARGS + ["--run_dir", str(run_dir)] + list(flags))
+    return PDEModelBasedController(script.config_from_args(args), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Each route's controller after ``learn()``, its records and each
+    retrain's steps per member."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = {}
+    try:
+        for name, flags in ROUTES.items():
+            run_dir = tmp_path_factory.mktemp(name)
+            ctl = _controller(run_dir, *flags)
+            fits, update = [], ctl.update_surrogates
+
+            def noted_update(ctl=ctl, fits=fits, update=update):
+                before = ctl.fit_state.global_step.tolist()
+                logs = update()
+                fits.append([b - a for a, b in zip(before, ctl.fit_state.global_step.tolist())])
+                return logs
+
+            ctl.update_surrogates = noted_update
+            try:
+                ctl.learn()
+            finally:
+                ctl.logger.finish()
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            out[name] = (ctl, records, fits)
+    finally:
+        torch.set_num_threads(n)
+    return out
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_horizon_climbs_and_world_replay_wraps(runs, route):
+    ctl, records, fits = runs[route]
+    assert ctl.config.fuse_iteration == (route == "default")
+    assert [r["horizon"] for r in records] == HORIZONS
+    assert ctl.world_replay.num_rows == 8
+    # The first 4 rows hold the rollout batch's first episodes; each
+    # iteration claims 4 more.
+    assert int(ctl.world_replay.next_row) == 4 + 4 * ITERATIONS > 8
+    assert len(fits) == 2  # retrains at iterations 0 and 5
+
+
+def test_a_member_stops_before_the_others(runs):
+    _, _, fits = runs["default"]
+    assert any(min(steps) < max(steps) for steps in fits), fits
+    assert all(max(steps) <= 12 for steps in fits)
+
+
+def test_routes_agree_while_the_long_run_paths_run(runs):
+    """Every non-clock field, the steps per member, the world replay and the
+    members' parameters and Adam state: identical."""
+    (a, ra, fa), (b, rb, fb) = runs["default"], runs["unfused"]
+
+    def strip(record):
+        return {k: v for k, v in record.items()
+                if k not in WALL_CLOCK and not k.startswith("t_")}
+
+    assert [strip(r) for r in ra] == [strip(r) for r in rb]
+    assert fa == fb
+    assert "t_fit_ready" in ra[0] and "t_fit_val" in rb[0]  # the two fit routes
+    for k in ("params", "exp_avg", "exp_avg_sq", "count", "global_step"):
+        np.testing.assert_array_equal(getattr(a.fit_state, k).numpy(),
+                                      getattr(b.fit_state, k).numpy())
+    for f in ("obs_seq", "rewards", "fill", "next_row"):
+        np.testing.assert_array_equal(getattr(a.world_replay, f).numpy(),
+                                      getattr(b.world_replay, f).numpy())
+
+
+def test_flagship_horizons_match_jax(tmp_path):
+    """The port's controller, built with the flagship's schedule, picks the
+    JAX package's horizon at each of the first 250 iterations (3 to 7, then
+    7)."""
+    args = _with(ARGS, rollout_length_schedule=json.dumps(FLAGSHIP_SCHEDULE))
+    cfg = script.config_from_args(script.build_parser().parse_args(
+        args + ["--run_dir", str(tmp_path)]))
+    ctl = PDEModelBasedController(cfg, device="cpu")
+    ctl.logger.finish()
+    jax_schedule = JScheduler.factory(FLAGSHIP_SCHEDULE)
+    ours = [int(ctl.schedule(iteration=i)) for i in range(250)]
+    assert ours == [int(jax_schedule(iteration=i)) for i in range(250)]
+    assert ours[0] == 3 and ours[199] == 6 and ours[200:] == [7] * 50
+    assert [ours.index(h) for h in range(3, 8)] == [0, 50, 100, 150, 200]
+
+
+def test_long_run_report_reads_a_run(tmp_path):
+    """``viz/long_run.py`` on a made-up run: a retrain with an evaluation
+    at iteration 0, pipelined iterations (one capturing), a second retrain;
+    its summary is ``viz/report.py``'s, read from ``metrics.jsonl.gz``."""
+    recs = [
+        {"iteration": 0, "num_steps_sampled": 5000, "horizon": 3, "time": 10.0,
+         "t_fit_total": 12.0, "epochs": 90, "steps": 270, "t_surrogate": 12.5,
+         "eval_return_mean": -600.0, "t_capture": 4.0, "graph_pool_mb": 39.8},
+        {"iteration": 1, "num_steps_sampled": 5010, "horizon": 3, "time": 11.0,
+         "t_dispatch": 0.2, "t_ready": 0.01, "t_capture": 3.6},
+        {"iteration": 2, "num_steps_sampled": 5020, "horizon": 4, "time": 11.3,
+         "t_dispatch": 0.25, "t_ready": 0.2},
+        {"iteration": 3, "num_steps_sampled": 5030, "horizon": 4, "time": 11.7,
+         "t_dispatch": 0.25, "t_ready": 0.3},
+        {"iteration": 4, "num_steps_sampled": 15000, "horizon": 7, "time": 20.0,
+         "t_fit_total": 2.0, "epochs": 10, "steps": 60, "t_surrogate": 2.1,
+         "eval_return_mean": -150.0},
+        {"iteration": 5, "num_steps_sampled": 25000, "horizon": 7, "time": 30.0,
+         "t_fit_total": 4.0, "epochs": 20, "steps": 80, "t_surrogate": 4.1,
+         "eval_return_mean": -170.0},
+    ]
+    with gzip.open(tmp_path / "metrics.jsonl.gz", "wt") as f:
+        f.writelines(json.dumps(r) + "\n" for r in recs)
+    log = tmp_path / "out.log"
+    log.write_text("[memory] iteration 0: peak allocated 1724.9 MB, reserved 1713.4 MB\n"
+                   '[rank] {"K1": 42320, "world_rows": [450100, 30000]}\n')
+    out = long_run.report(str(tmp_path), str(log))
+    s = out["summary"]
+    assert (s["iterations"], s["env_steps"], s["wall_time_s"]) == (5, 25000, 30.0)
+    assert (s["eval_return_first"], s["eval_return_best"], s["eval_return_last"]) == \
+        (-600.0, -150.0, -170.0)
+    assert s["in_band"]
+    assert out["eval_at"] == {10000: -600.0, 20000: -150.0, 30000: -170.0}
+    h = out["horizons"]
+    assert h[3] == {"count": 0, "median": None, "min": None, "max": None,
+                    "wall": {"count": 0, "median": None, "min": None, "max": None},
+                    "captured": [0.21]}
+    assert (h[4]["count"], h[4]["median"], h[4]["max"]) == (2, 0.5, 0.55)
+    assert h[4]["wall"]["count"] == 1 and h[4]["wall"]["median"] == pytest.approx(0.4)
+    r = out["retrains"]
+    assert r["count"] == 3 and r["first"]["steps"] == 270
+    assert r["later_median"]["t_fit_total"] == 3.0 and r["later_range"]["epochs"] == [10, 20]
+    assert [c["iteration"] for c in out["captures"]] == [0, 1]
+    assert out["memory"] == {0: {"peak_allocated_mb": 1724.9, "reserved_mb": 1713.4}}
+    assert out["rank"]["K1"] == 42320

@@ -263,7 +263,9 @@ FIT_ROUTE_FIELDS = {
     (["--sequential_member_training"], "fused", "sequential"),
     (["--no_fuse_iteration", "--no_fuse_fit", "--sequential_member_training"], "eager",
      "sequential"),
-], ids=["default", "no_fuse_iteration", "no_fuse_fit", "sequential", "all_three"])
+    (["--no_fuse_iteration", "--no_fuse_fit"], "eager", "lockstep_eager"),
+], ids=["default", "no_fuse_iteration", "no_fuse_fit", "sequential", "all_three",
+        "no_fuse_iteration_and_fit"])
 def test_fusion_flags_are_accepted(tmp_path, flags, iteration_route, fit_route):
     """``--no_fuse_iteration`` selects the eager phases, each timed after a
     device synchronisation; ``--no_fuse_fit`` the lock-step fit run eagerly
