@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nineteen phases, each timed:
+Twenty phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
@@ -172,7 +172,12 @@ Nineteen phases, each timed:
      graphed fit against ``--no_fuse_fit``) the default's exactly; at one
      retrain at least a member must stop before the others, and each
      retrain's share of masked member-steps is printed, as is the default
-     route's dispatch to pull by horizon.
+     route's dispatch to pull by horizon;
+ 20. the dissipation channel — ``MAIN_ARGS`` with ``runscripts/
+     mbpo_ks_dissipation.sh``'s ``{"objective": ""}`` (the reference quirk
+     that selects the dissipation + power integrand) for phase 3's six
+     iterations, checked as phase 3: K1 must launch ``MAIN_K1_LAUNCHES``
+     times and K2 never, and the run's config must carry the objective.
 
 Every retrain of the MBPO paths (phases 3, 6 and 8 to 11, 13 and 19) runs the
 default lock-step fit, its TBPTT and validation steps replayed from CUDA
@@ -182,7 +187,7 @@ retrain the fit's captures (``t_fit_capture``); the controllers of phases
 13 and 19 built with ``graphs=False`` fit eagerly, and phase 19's
 ``--no_fuse_fit`` route too (``t_fit_val`` in place of ``t_fit_ready``).
 
-Every path of phases 3, 6 to 13, 17 and 19 runs with the kernels' launch counts
+Every path of phases 3, 6 to 13, 17, 19 and 20 runs with the kernels' launch counts
 set to 0 just before it, and they are read just after it (a rank process of
 phase 17 starts at 0 and prints its counts at its end); K1 runs the
 reset-pool transient of every KS path.  The script prints the card's name and power
@@ -217,6 +222,7 @@ RUN_DIR_FIT = os.path.join(HERE, "runs", "chip_smoke_fit")
 RUN_DIR_MESH = os.path.join(HERE, "runs", "chip_smoke_mesh")
 RUN_DIR_MESH_ONE = os.path.join(HERE, "runs", "chip_smoke_mesh_1x1")
 RUN_DIR_LONG = os.path.join(HERE, "runs", "chip_smoke_long")
+RUN_DIR_DISSIPATION = os.path.join(HERE, "runs", "chip_smoke_dissipation")
 KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
@@ -291,6 +297,11 @@ def with_args(args, **changes):
     for flag, value in changes.items():
         out[out.index("--" + flag) + 1] = value
     return out
+
+
+# Phase 20: the main path on the dissipation channel.
+DISSIPATION_ARGS = with_args(MAIN_ARGS, run_dir=RUN_DIR_DISSIPATION) + [
+    "--env_config", json.dumps({"objective": ""})]
 
 
 # Phase 13: the main path with the phases one after another (each a graph),
@@ -1074,6 +1085,17 @@ def run_mbpo(args, run_dir, kernels, fused=True, evals=(0,), graphs=True):
     for k, vals in seen.items():
         print(f"   {k}: {vals}", flush=True)
     return counts
+
+
+def run_dissipation():
+    """Phase 20: the main path with ``{"objective": ""}``, through K1."""
+    counts = run_mbpo(DISSIPATION_ARGS, RUN_DIR_DISSIPATION, ("K1",))
+    if counts != {"K1": MAIN_K1_LAUNCHES, "K2": 0}:
+        raise AssertionError(f"the dissipation path launched {counts}, expected K1 "
+                             f"{MAIN_K1_LAUNCHES} times and K2 never")
+    env_config = json.load(open(os.path.join(RUN_DIR_DISSIPATION, "config.json")))["env_config"]
+    if env_config.get("objective") != "" or env_config.get("solver") != "pallas":
+        raise AssertionError(f"the dissipation path ran with {env_config}")
 
 
 def print_retrains(run_dir):
@@ -2045,6 +2067,11 @@ def main() -> int:
     run_long()
     done("19 what only a long run reaches", t0)
     print(f"== phases 1-19: {time.perf_counter() - start:.2f} s in all", flush=True)
+
+    t0 = phase("20 dissipation channel (objective \"\", K1)")
+    run_dissipation()
+    done("20 dissipation channel (objective \"\", K1)", t0)
+    print(f"== phases 1-20: {time.perf_counter() - start:.2f} s in all", flush=True)
 
     print(json.dumps({"kernels": [
         {

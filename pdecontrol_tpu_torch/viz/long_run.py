@@ -28,16 +28,39 @@ prints one JSON object:
     iteration and the ``[rank]`` line (its graphs by key with their
     replays, K1's launches, the replays' ring positions, peak memory).
 
+Without ``--run_dir`` it compares the study's runs in ``results/``, port
+beside JAX, and prints one JSON object (``compare``):
+
+  * per reward channel, each MBPO run's eval return at 10k ... 50k env
+    steps and its best, and each SAC stream's first env step whose eval
+    return reaches the MBPO runs' best (the median of the port's runs'
+    bests; JAX's ``ks50k`` and ``ks50k_dissipation``, as ``results/
+    RESULTS.md`` sections 2 and 8 take them; where the port has no 50k
+    MBPO run on a channel, JAX's), with that step's ratio to 50,000, its
+    evaluations to 50k and its first record's qf loss; beside them the
+    JAX package's SAC baseline run on the CPU (``JAX_CPU_SAC``);
+  * the bf16_3x and dissipation runs beside their JAX runs, and, for a run
+    that reached 50k env steps, whether its best lies under its limit
+    (``PAIRS``);
+  * the lag test: the port's flagship seeds against the JAX flagship runs
+    (``jax_flagship_runs``), each run's mean eval return over the 10k ...
+    50k marks, the one-sided exact permutation p of the port's mean
+    (``permutation_p``) and the verdict, fixed before the runs were read:
+    confirmed at p <= 0.05, cleared at p > 0.2, open between.
+
 It needs no matplotlib (``viz/report.py`` imports it only to render).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import itertools
 import json
+import os
 import re
 import sys
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -153,13 +176,188 @@ def report(run_dir: str, log: Optional[str] = None) -> Dict:
     return out
 
 
+RESULTS = "results"
+MARKS = tuple(range(EVAL_EVERY, 50_000 + 1, EVAL_EVERY))
+# The port's runs by reward channel: MBPO at 50k env steps (the flagship's
+# seeds 0-3; no dissipation run reached 50k) and the SAC baseline at 500k.
+PORT_MBPO = {"l2control": ("torch_ks50k", "torch_ks50k_seed1", "torch_ks50k_seed2",
+                           "torch_ks50k_seed3"),
+             "dissipation": ()}
+PORT_SAC = {"l2control": ("torch_sac500k", "torch_sac500k_seed1"),
+            "dissipation": ("torch_sac500k_dissipation", "torch_sac500k_dissipation_seed1")}
+# The JAX pair of each channel (results/RESULTS.md sections 2 and 8).
+JAX_MBPO = {"l2control": ("ks50k",), "dissipation": ("ks50k_dissipation",)}
+JAX_SAC = {"l2control": ("sac500k",), "dissipation": ("sac500k_dissipation",)}
+# The JAX package's SAC baseline run on the CPU with results/sac500k's
+# cadence (``python -m pdecontrol_tpu.sac.train --platform cpu
+# --learning_starts 5000 --eval_freq 10000``), seeds 0 and 1, to 57k steps.
+JAX_CPU_SAC = {"l2control": ("jax_cpu_sac57k_seed0", "jax_cpu_sac57k_seed1"),
+               "dissipation": ()}
+# The port's runs of the other two configurations, their JAX runs, and the
+# limit of "well outside" for a best at 50k: bf16_3x under the flagship
+# band's low end less its width; dissipation under JAX's -207.2 less 11%.
+PAIRS = {"torch_ks10k_bf16": ("ks50k_bf16", -181.0),
+         "torch_ks10k_dissipation": ("ks50k_dissipation", -230.0)}
+# results/ks50k* runs of another configuration than runscripts/mbpo_ks.sh's.
+JAX_OTHER_CONFIG = {
+    "ks50k_bf16": "runscripts/mbpo_ks_bf16.sh: K2 at bf16_3x",
+    "ks50k_delay": "another surrogate family (KSDelayCNNSurrogateFactory)",
+    "ks50k_dissipation": "the dissipation objective (runscripts/mbpo_ks_dissipation.sh)",
+    "ks50k_latent": "another surrogate family (KSLatentConvolutionalLSTM)",
+    "ks50k_latent_r4": "another surrogate family (runscripts/mbpo_ks_latent_r4.sh)",
+}
+P_CONFIRMED, P_CLEARED = 0.05, 0.2
+FULL_RUN_STEPS = 49_990  # env steps sampled at a 50k run's last record
+
+
+def first_segment(recs: List[Dict]) -> List[Dict]:
+    """The records of the run's first process: a resumed run restarts its
+    clock, and its first evaluation repeats the warmup's (``ks50k_r2`` was
+    resumed past 50k)."""
+    for i in range(1, len(recs)):
+        if recs[i].get("time", 0.0) < recs[i - 1].get("time", 0.0):
+            return recs[:i]
+    return recs
+
+
+def _evals(recs: List[Dict]) -> List[Tuple[int, float]]:
+    return [(r["num_steps_sampled"], r["eval_return_mean"]) for r in recs
+            if r.get("eval_return_mean") is not None and "num_steps_sampled" in r]
+
+
+def mark_mean(recs: List[Dict]) -> float:
+    """The lag test's statistic: the mean eval return over the 10k ... 50k
+    marks."""
+    at = eval_at(recs)
+    missing = [m for m in MARKS if m not in at]
+    if missing:
+        raise ValueError(f"no evaluation by {missing} env steps")
+    return float(np.mean([at[m] for m in MARKS]))
+
+
+def first_reach(recs: List[Dict], target: float) -> Optional[int]:
+    """The first env step whose eval return reaches ``target``, or None."""
+    return next((s for s, v in _evals(recs) if v >= target), None)
+
+
+def permutation_p(port: Sequence[float], jax: Sequence[float]) -> Tuple[float, int]:
+    """One-sided exact permutation p of the port group's mean: the share of
+    the splits of all the runs into groups of the two sizes whose port-size
+    group's mean is at most the observed one (ties count), and the number of
+    splits."""
+    pooled = list(port) + list(jax)
+    observed = float(np.mean(port))
+    means = [float(np.mean([pooled[i] for i in idx]))
+             for idx in itertools.combinations(range(len(pooled)), len(port))]
+    return sum(m <= observed + 1e-9 for m in means) / len(means), len(means)
+
+
+def _has_stream(run_dir: str) -> bool:
+    return any(os.path.exists(os.path.join(run_dir, f))
+               for f in ("metrics.jsonl", "metrics.jsonl.gz"))
+
+
+def jax_flagship_runs(results: str = RESULTS) -> Tuple[Dict[str, List[Dict]], Dict[str, str]]:
+    """The JAX flagship runs of the lag test: every ``results/ks50k*`` run of
+    ``runscripts/mbpo_ks.sh``'s configuration, its first process's records,
+    one run for each distinct eval stream (reruns of one seed that timed a
+    change repeat its stream); and the runs left out, with the reason.  A
+    flagship run without a metrics stream raises."""
+    taken: Dict[str, List[Dict]] = {}
+    left_out: Dict[str, str] = {}
+    streams: Dict[Tuple, str] = {}
+    for run_dir in sorted(glob.glob(os.path.join(results, "ks50k*"))):
+        name = os.path.basename(run_dir)
+        if name in JAX_OTHER_CONFIG:
+            left_out[name] = JAX_OTHER_CONFIG[name]
+            continue
+        if not _has_stream(run_dir):
+            raise FileNotFoundError(f"{run_dir}: a flagship run without a metrics stream")
+        recs = first_segment(load(run_dir))
+        key = tuple(_evals(recs))
+        if key in streams:
+            left_out[name] = f"the same eval stream as {streams[key]}"
+            continue
+        streams[key] = name
+        taken[name] = recs
+    return taken, left_out
+
+
+def _run(recs: List[Dict]) -> Dict:
+    evals = _evals(recs)
+    return {"eval_at": {m: v for m, v in eval_at(recs).items() if m in MARKS},
+            "best": max(v for _, v in evals), "first": evals[0][1], "last": evals[-1][1]}
+
+
+def _sac(recs: List[Dict], targets: Dict[str, float], target: float) -> Dict:
+    reach = first_reach(recs, target)
+    evals = _evals(recs)
+    return {"first_reach": reach, "ratio": None if reach is None else reach / 50_000,
+            "first_reach_by_run": {k: first_reach(recs, t) for k, t in targets.items()},
+            "evals_to_50k": [[s, v] for s, v in evals if s <= 50_000],
+            "eval_at_50k": [v for s, v in evals if s <= 50_000][-1],
+            "first_qf_loss": recs[0].get("sac_qf_loss"),
+            "best": max(v for _, v in evals), "last": evals[-1][1],
+            "evaluations": len(evals), "records": len(recs),
+            "env_steps": recs[-1]["num_steps_sampled"]}
+
+
+def _side(results: str, mbpo: Sequence[str], sac: Sequence[str],
+          fallback: Optional[Dict[str, float]] = None) -> Dict:
+    """MBPO runs and SAC streams of one side; without MBPO runs, the SAC
+    streams are held to ``fallback``'s targets (the other side's)."""
+    runs = {name: _run(first_segment(load(os.path.join(results, name)))) for name in mbpo}
+    targets = {name: r["best"] for name, r in runs.items()} or dict(fallback)
+    target = float(np.median(list(targets.values())))
+    return {"mbpo": runs, "target": target, "targets_of": "own" if runs else "jax",
+            "sac": {name: _sac(load(os.path.join(results, name)), targets, target)
+                    for name in sac}}
+
+
+def _pair(results: str, port: str, jax: str, limit: float) -> Dict:
+    """A port run beside its JAX run; whether its best lies under the limit
+    is asked of a run that reached 50k env steps only."""
+    recs = first_segment(load(os.path.join(results, port)))
+    mine = {**_run(recs), "env_steps": recs[-1]["num_steps_sampled"]}
+    reached = mine["env_steps"] >= FULL_RUN_STEPS
+    return {"port": mine, "jax": {"run": jax, **_run(first_segment(
+        load(os.path.join(results, jax))))}, "limit": limit,
+        "outside": (mine["best"] < limit) if reached else None}
+
+
+def compare(results: str = RESULTS) -> Dict:
+    """The study's comparison, port beside JAX, from ``results``."""
+    out: Dict = {"channels": {}}
+    for ch in PORT_MBPO:
+        jax = _side(results, JAX_MBPO[ch], JAX_SAC[ch])
+        fallback = {name: r["best"] for name, r in jax["mbpo"].items()}
+        out["channels"][ch] = {"port": _side(results, PORT_MBPO[ch], PORT_SAC[ch], fallback),
+                               "jax": jax,
+                               "jax_cpu": _side(results, (), JAX_CPU_SAC[ch], fallback)}
+    out["pairs"] = {port: _pair(results, port, jax, limit)
+                    for port, (jax, limit) in PAIRS.items()}
+    jax_runs, left_out = jax_flagship_runs(results)
+    port_means = {name: mark_mean(first_segment(load(os.path.join(results, name))))
+                  for name in PORT_MBPO["l2control"]}
+    jax_means = {name: mark_mean(recs) for name, recs in jax_runs.items()}
+    p, splits = permutation_p(list(port_means.values()), list(jax_means.values()))
+    out["lag_test"] = {
+        "statistic": "mean eval return at " + ", ".join(f"{m // 1000}k" for m in MARKS),
+        "port": port_means, "jax": jax_means, "jax_left_out": left_out,
+        "splits": splits, "p": p,
+        "verdict": "confirmed" if p <= P_CONFIRMED else "cleared" if p > P_CLEARED else "open"}
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--run_dir", required=True)
+    p.add_argument("--run_dir", default=None,
+                   help="the run to report; without it, the study's comparison")
     p.add_argument("--log", default=None, help="the run's standard output")
     args = p.parse_args(argv)
-    print(json.dumps(report(args.run_dir, args.log), indent=1))
+    out = compare() if args.run_dir is None else report(args.run_dir, args.log)
+    print(json.dumps(out, indent=1))
     return 0
 
 

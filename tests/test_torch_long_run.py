@@ -10,6 +10,7 @@ the JAX package's."""
 
 import gzip
 import json
+import math
 import os
 
 import numpy as np
@@ -194,3 +195,127 @@ def test_long_run_report_reads_a_run(tmp_path):
     assert [c["iteration"] for c in out["captures"]] == [0, 1]
     assert out["memory"] == {0: {"peak_allocated_mb": 1724.9, "reserved_mb": 1713.4}}
     assert out["rank"]["K1"] == 42320
+
+
+# The study's comparison (``long_run.compare``) on made-up streams.
+
+def _write_stream(run_dir, evals, times=None):
+    """A run's ``metrics.jsonl.gz`` with an evaluation at each (step,
+    return) of ``evals``."""
+    run_dir.mkdir(parents=True)
+    times = times or [float(i) for i in range(len(evals))]
+    with gzip.open(run_dir / "metrics.jsonl.gz", "wt") as f:
+        for (step, value), t in zip(evals, times):
+            f.write(json.dumps({"num_steps_sampled": step, "eval_return_mean": value,
+                                "time": t}) + "\n")
+
+
+def _mbpo(mean, best=None):
+    """Evaluations at 9,500 ... 49,500 steps whose mark mean is ``mean``,
+    and one of ``best`` between two marks."""
+    evals = [(m - 500, mean + d) for m, d in zip(long_run.MARKS, (-40, -20, 0, 20, 40))]
+    return sorted(evals + [(45_000, best)]) if best is not None else evals
+
+
+def test_sac_first_reach_and_a_stream_that_never_reaches():
+    recs = [{"num_steps_sampled": s, "eval_return_mean": v} for s, v in
+            [(6000, -500.0), (15000, -200.0), (25000, -150.0), (35000, -160.0)]]
+    recs.insert(1, {"num_steps_sampled": 7000, "collect_reward_mean": -1.0})
+    assert long_run.first_reach(recs, -160.0) == 25000
+    assert long_run.first_reach(recs, -500.0) == 6000
+    assert long_run.first_reach(recs, -100.0) is None
+    out = long_run._sac(recs, {"a": -155.0, "b": -120.0}, -155.0)
+    assert (out["first_reach"], out["ratio"]) == (25000, 0.5)
+    assert out["first_reach_by_run"] == {"a": 25000, "b": None}
+    assert (out["eval_at_50k"], out["best"], out["last"]) == (-160.0, -150.0, -160.0)
+    never = long_run._sac(recs, {"a": -100.0}, -100.0)
+    assert never["first_reach"] is None and never["ratio"] is None
+
+
+@pytest.mark.parametrize("n", [1, 3, 5])
+def test_permutation_p_when_every_port_mean_lies_under_every_jax_mean(n):
+    port = [-260.0, -265.0, -270.0, -275.0]
+    jax = [-230.0 - i for i in range(n)]
+    p, splits = long_run.permutation_p(port, jax)
+    assert splits == math.comb(4 + n, 4)
+    assert p == pytest.approx(1 / math.comb(4 + n, 4))
+    # Above every JAX mean: every split's mean is at most the port's.
+    assert long_run.permutation_p([-200.0] * 4, jax)[0] == 1.0
+
+
+def test_permutation_p_counts_ties():
+    # Four of {0, 0, 0, 1, 1, 1}: 12 of the 15 splits hold at most two 1s,
+    # and so a mean of at most the observed 0.5.
+    assert long_run.permutation_p([0.0, 0.0, 1.0, 1.0], [0.0, 1.0]) == (0.8, 15)
+    assert long_run.permutation_p([-1.0] * 4, [-1.0] * 3) == (1.0, 35)
+
+
+def test_jax_selection_takes_distinct_flagship_streams_and_fails_without_one(tmp_path):
+    _write_stream(tmp_path / "ks50k", _mbpo(-226.0))
+    _write_stream(tmp_path / "ks50k_r3", _mbpo(-228.0))
+    _write_stream(tmp_path / "ks50k_r3b", _mbpo(-228.0))
+    _write_stream(tmp_path / "ks50k_bf16", _mbpo(-249.0))
+    # Resumed past 50k: its clock restarts and the repeated warmup
+    # evaluation is not the run's.
+    _write_stream(tmp_path / "ks50k_r2", _mbpo(-237.0) + [(50_000, -900.0)],
+                  times=[1.0, 2.0, 3.0, 4.0, 5.0, 0.5])
+    taken, left_out = long_run.jax_flagship_runs(str(tmp_path))
+    assert list(taken) == ["ks50k", "ks50k_r2", "ks50k_r3"]
+    assert left_out == {"ks50k_bf16": long_run.JAX_OTHER_CONFIG["ks50k_bf16"],
+                        "ks50k_r3b": "the same eval stream as ks50k_r3"}
+    assert long_run.mark_mean(taken["ks50k_r2"]) == pytest.approx(-237.0)
+    (tmp_path / "ks50k_seed9").mkdir()
+    with pytest.raises(FileNotFoundError, match="ks50k_seed9"):
+        long_run.jax_flagship_runs(str(tmp_path))
+
+
+def test_compare_reads_the_study(tmp_path, monkeypatch):
+    """Port and JAX side by side: each channel's first-reach step, the
+    pairs beside their limits, and the lag test's p and verdict."""
+    port = {"torch_ks50k": -258.0, "torch_ks50k_seed1": -267.0,
+            "torch_ks50k_seed2": -262.0, "torch_ks50k_seed3": -255.0}
+    for name, mean in port.items():
+        _write_stream(tmp_path / name, _mbpo(mean, best=-160.0 - len(name)))
+    for name, mean in {"ks50k": -226.0, "ks50k_seed1": -240.0}.items():
+        _write_stream(tmp_path / name, _mbpo(mean, best=-154.0))
+    _write_stream(tmp_path / "torch_ks10k_dissipation", _mbpo(-480.0, best=-235.0)[:1])
+    _write_stream(tmp_path / "ks50k_dissipation", _mbpo(-479.0, best=-207.0))
+    _write_stream(tmp_path / "torch_ks10k_bf16", _mbpo(-250.0, best=-190.0) + [(49_990, -215.0)])
+    _write_stream(tmp_path / "ks50k_bf16", _mbpo(-249.0, best=-166.0))
+    sac = [(6000, -560.0), (45000, -350.0), (105000, -200.0), (235000, -150.0),
+           (495000, -118.0)]
+    for name in ("torch_sac500k", "torch_sac500k_dissipation", "sac500k_dissipation"):
+        _write_stream(tmp_path / name, sac)
+    _write_stream(tmp_path / "sac500k", sac[:3])
+    _write_stream(tmp_path / "jax_cpu_sac", sac[:2])
+    monkeypatch.setattr(long_run, "PORT_SAC", {"l2control": ("torch_sac500k",),
+                                               "dissipation": ("torch_sac500k_dissipation",)})
+    monkeypatch.setattr(long_run, "JAX_CPU_SAC", {"l2control": ("jax_cpu_sac",),
+                                                  "dissipation": ()})
+    out = long_run.compare(str(tmp_path))
+    l2 = out["channels"]["l2control"]
+    assert l2["port"]["target"] == pytest.approx(np.median([-171.0, -177.0, -177.0, -177.0]))
+    assert l2["port"]["sac"]["torch_sac500k"]["first_reach"] == 235000
+    assert l2["jax"]["target"] == -154.0
+    assert l2["jax"]["sac"]["sac500k"]["first_reach"] is None  # never reaches -154
+    assert l2["jax"]["sac"]["sac500k"]["eval_at_50k"] == -350.0
+    assert l2["jax"]["mbpo"]["ks50k"]["eval_at"][50000] == -186.0
+    assert l2["port"]["targets_of"] == "own"
+    cpu = l2["jax_cpu"]["sac"]["jax_cpu_sac"]
+    assert cpu["evals_to_50k"] == [[6000, -560.0], [45000, -350.0]]
+    assert cpu["first_reach"] is None and l2["jax_cpu"]["target"] == -154.0
+    # No port MBPO run on the dissipation channel: JAX's best is the target.
+    diss = out["channels"]["dissipation"]
+    assert diss["port"]["mbpo"] == {} and diss["port"]["targets_of"] == "jax"
+    assert diss["port"]["target"] == diss["jax"]["target"] == -207.0
+    assert diss["port"]["sac"]["torch_sac500k_dissipation"]["ratio"] == 105000 / 50000
+    pairs = out["pairs"]
+    assert pairs["torch_ks10k_bf16"]["outside"]  # reached 50k, under -181
+    assert pairs["torch_ks10k_bf16"]["jax"]["best"] == -166.0
+    assert pairs["torch_ks10k_dissipation"]["port"]["env_steps"] == 9_500
+    assert pairs["torch_ks10k_dissipation"]["outside"] is None  # stopped at 9,500
+    lag = out["lag_test"]
+    assert list(lag["jax"]) == ["ks50k", "ks50k_seed1"]
+    assert "ks50k_dissipation" in lag["jax_left_out"]
+    assert lag["port"]["torch_ks50k_seed2"] == pytest.approx(-262.0)
+    assert (lag["p"], lag["splits"], lag["verdict"]) == (pytest.approx(1 / 15), 15, "open")
