@@ -177,7 +177,22 @@ Twenty phases, each timed:
      mbpo_ks_dissipation.sh``'s ``{"objective": ""}`` (the reference quirk
      that selects the dissipation + power integrand) for phase 3's six
      iterations, checked as phase 3: K1 must launch ``MAIN_K1_LAUNCHES``
-     times and K2 never, and the run's config must carry the objective.
+     times and K2 never, and the run's config must carry the objective;
+ 21. the twin on the card — ``tests/twin_tape.py``'s tiny ``learn()`` (the
+     twin that ``tests/test_torch_twin.py`` holds to the JAX package in
+     float64 on the CPU) in float32 on one tape of draws, on the card
+     through K1 in a controller built with ``graphs=False`` (a graph would
+     replay its capture's draws) and, in a process of its own, on the
+     host's CPU through the plain solver.  The float32 floor adds three
+     gaps from the CPU run, each field's own: the CPU run with each SAC
+     batch's rows in reverse order (summation order), the CPU run with
+     every control period moved by +-phase 2's K1 error (K1's gap to the
+     plain version), and the card's run through the plain solver.  The
+     card's K1 run must start from the CPU run's weights and hold the
+     warmup's rewards, the first retrain's ``val_loss``, ``elite_scores``,
+     ``epochs`` and ``steps`` and the first evaluation within the floor;
+     the largest gap of every iteration's record and the first iteration
+     that parts beyond its floor are printed, and not held.
 
 Every retrain of the MBPO paths (phases 3, 6 and 8 to 11, 13 and 19) runs the
 default lock-step fit, its TBPTT and validation steps replayed from CUDA
@@ -302,6 +317,11 @@ def with_args(args, **changes):
 # Phase 20: the main path on the dissipation channel.
 DISSIPATION_ARGS = with_args(MAIN_ARGS, run_dir=RUN_DIR_DISSIPATION) + [
     "--env_config", json.dumps({"objective": ""})]
+
+
+# Phase 21: the twin on the card (tests/twin_tape.py).
+RUN_DIR_TWIN = os.path.join(HERE, "runs", "chip_smoke_twin")
+TWIN_HOST_TIMEOUT = 600
 
 
 # Phase 13: the main path with the phases one after another (each a graph),
@@ -1096,6 +1116,91 @@ def run_dissipation():
     env_config = json.load(open(os.path.join(RUN_DIR_DISSIPATION, "config.json")))["env_config"]
     if env_config.get("objective") != "" or env_config.get("solver") != "pallas":
         raise AssertionError(f"the dissipation path ran with {env_config}")
+
+
+def twin_held(run):
+    """What phase 21 holds of a twin run: the warmup's rewards, the first
+    retrain's record and the first evaluation."""
+    first = run["records"][0]
+    return {"warmup rewards": run["warmup_rewards"], "val_loss": first["val_loss"],
+            "elite_scores": first["elite_scores"], "epochs": first["epochs"],
+            "steps": first["steps"],
+            "first eval return": [run["evals"][0]["eval_return_mean"],
+                                  run["evals"][0]["eval_return_std"]]}
+
+
+def run_twin(k1_errors):
+    """Phase 21: the twin's tape on the card against the port on the host."""
+    import torch
+
+    from tests import twin_tape as T
+
+    shutil.rmtree(RUN_DIR_TWIN, ignore_errors=True)
+    os.makedirs(RUN_DIR_TWIN)
+    eps = max(k1_errors)
+    host = subprocess.Popen([sys.executable, os.path.join(HERE, "tests", "twin_tape.py"),
+                             RUN_DIR_TWIN, repr(eps)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    runs = {}
+    try:
+        for name, solver in (("card K1", "pallas"), ("card plain", "xla")):
+            t = time.perf_counter()
+            run, counts = counted_run(f"the twin's learn() on the card ({solver})", lambda: (
+                T.run_port(os.path.join(RUN_DIR_TWIN, name.replace(" ", "_")),
+                           torch.device("cuda"), torch.float32, solver=solver, graphs=False)))
+            if (counts["K1"] > 0) != (solver == "pallas") or counts["K2"]:
+                raise AssertionError(f"the twin through {solver} launched {counts}")
+            print(f"   {name}: {time.perf_counter() - t:.2f} s", flush=True)
+            runs[name] = run
+        t = time.perf_counter()
+        _, stderr = host.communicate(timeout=TWIN_HOST_TIMEOUT)
+        if host.returncode != 0:
+            raise RuntimeError(f"the twin's CPU runs failed:\n{stderr[-3000:]}")
+        print(f"   the CPU runs' process ended {time.perf_counter() - t:.2f} s after the "
+              f"card's runs", flush=True)
+    finally:
+        if host.poll() is None:
+            host.kill()
+            host.communicate()
+    for name in ("cpu", "cpu_reordered", "cpu_perturbed"):
+        with open(os.path.join(RUN_DIR_TWIN, name + ".json")) as f:
+            runs[name.replace("_", " ")] = json.load(f)
+    digests = {name: run["weights_digest"] for name, run in runs.items()}
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"the twin's runs started from other weights: {digests}")
+
+    sources = ("cpu reordered", "cpu perturbed", "card plain")
+    ref = twin_held(runs["cpu"])
+    parts = {n: {k: T.gap(twin_held(runs[n])[k], v) for k, v in ref.items()} for n in sources}
+    floor = {k: sum(parts[n][k] for n in sources) for k in ref}
+    held = {k: T.gap(twin_held(runs["card K1"])[k], v) for k, v in ref.items()}
+    print(f"   the floor's sources: SAC rows reversed on the CPU; every period moved by "
+          f"+-{eps:.3e} (phase 2's K1 max_abs_err) on the CPU; the plain solver on the card",
+          flush=True)
+    for k in ref:
+        print(f"   {k}: card K1 against the CPU {held[k]:.3e}, floor {floor[k]:.3e} ("
+              + ", ".join(f"{n} {parts[n][k]:.3e}" for n in sources) + ")", flush=True)
+    parted = [k for k in ref if held[k] > floor[k]]
+
+    gaps = T.record_gaps(runs["card K1"]["records"], runs["cpu"]["records"])
+    source_gaps = {n: T.record_gaps(runs[n]["records"], runs["cpu"]["records"])
+                   for n in sources}
+    first_parting = None
+    for i, g in enumerate(gaps):
+        f_floor = {k: sum(source_gaps[n][i].get(k, 0.0) for n in sources) for k in g}
+        worst = max(g, key=g.get)
+        over = [k for k in g if g[k] > f_floor[k]]
+        if over and first_parting is None:
+            first_parting = (i, over[0], g[over[0]], f_floor[over[0]])
+        print(f"   iteration {i}: largest gap {g[worst]:.3e} ({worst}; floor "
+              f"{f_floor[worst]:.3e}); fields over their floor: {over or 'none'}", flush=True)
+    print("   first iteration parting beyond its floor: " + (
+        "none" if first_parting is None else
+        f"{first_parting[0]} ({first_parting[1]} {first_parting[2]:.3e} > "
+        f"{first_parting[3]:.3e})"), flush=True)
+    if parted:
+        raise AssertionError(f"the card's K1 run parts from the CPU beyond the float32 floor "
+                             f"in {parted}")
 
 
 def print_retrains(run_dir):
@@ -2072,6 +2177,11 @@ def main() -> int:
     run_dissipation()
     done("20 dissipation channel (objective \"\", K1)", t0)
     print(f"== phases 1-20: {time.perf_counter() - start:.2f} s in all", flush=True)
+
+    t0 = phase("21 the twin on the card")
+    run_twin(k1_errors)
+    done("21 the twin on the card", t0)
+    print(f"== phases 1-21: {time.perf_counter() - start:.2f} s in all", flush=True)
 
     print(json.dumps({"kernels": [
         {

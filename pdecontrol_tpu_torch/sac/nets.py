@@ -29,6 +29,15 @@ def _dense(in_features: int, out_features: int) -> nn.Linear:
     return layer
 
 
+def _apply(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` on ``x`` in the wider of their dtypes, as flax's ``Dense``
+    promotes its input and parameters: float64 parameters on a float32 batch
+    (the SAC update's cast) compute in float64, and so do float32 parameters
+    on a float64 observation."""
+    dt = torch.promote_types(x.dtype, layer.weight.dtype)
+    return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+
+
 class GaussianPolicy(nn.Module):
     def __init__(self, obs_dim: int, achannels: int, asize: int, hidden: int = 256,
                  action_scale: float = 1.0, action_bias: float = 0.0):
@@ -42,10 +51,10 @@ class GaussianPolicy(nn.Module):
 
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         b = obs.shape[0]
-        x = F.relu(self.linear1(obs.reshape(b, -1)))
-        x = F.relu(self.linear2(x))
-        mean = self.mean(x)
-        log_std = torch.clamp(self.log_std(x), LOG_SIG_MIN, LOG_SIG_MAX)
+        x = F.relu(_apply(self.linear1, obs.reshape(b, -1)))
+        x = F.relu(_apply(self.linear2, x))
+        mean = _apply(self.mean, x)
+        log_std = torch.clamp(_apply(self.log_std, x), LOG_SIG_MIN, LOG_SIG_MAX)
         shape = (b, self.achannels, self.asize)
         return mean.reshape(shape), log_std.reshape(shape)
 
@@ -93,6 +102,6 @@ class QNetwork(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         b = obs.shape[0]
         xu = torch.cat([obs.reshape(b, -1), action.reshape(b, -1)], dim=1)
-        x1 = self.linear3(F.relu(self.linear2(F.relu(self.linear1(xu)))))
-        x2 = self.linear6(F.relu(self.linear5(F.relu(self.linear4(xu)))))
+        x1 = _apply(self.linear3, F.relu(_apply(self.linear2, F.relu(_apply(self.linear1, xu)))))
+        x2 = _apply(self.linear6, F.relu(_apply(self.linear5, F.relu(_apply(self.linear4, xu)))))
         return x1, x2
