@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty phases, each timed:
+Twenty-two phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
@@ -19,7 +19,11 @@ Twenty phases, each timed:
      error printed, held to rtol 1e-4, atol 1e-5); then the reset pool's
      set-up time (920 K1 launches at batch 64), and K1's time per period at
      the same four batches (CUDA events), beside the plain version's time
-     and the roofline bound;
+     and the roofline bound; then K1's general path (every grid of 9 to
+     1,024 points but 32, 64, ..., 256; see ``check_kernel_grids``) against
+     the plain version on the host's CPU at 9 to 1,024 points and batch 1,
+     12 and 64, ``env.step`` at 48 points, 8 and 1,025 points refused
+     before a launch, and its time per period at 48 and 512 points;
   3. the main path — ``pdecontrol_tpu_torch.mbrl.script.main`` with the
      flagship arguments of ``runscripts/mbpo_ks.sh`` and ``--solver pallas``
      for a few iterations (see ``MAIN_ARGS``), by default: every iteration
@@ -42,7 +46,8 @@ Twenty phases, each timed:
      fields on grids of 32 to 256 points (one-pass ``bf16`` up to 128);
      then K2's and the plain version's time per period for ``bf16_3x`` at
      batch 10, 64 and 1024 and for ``bf16_4x`` at batch 10, beside the
-     roofline bound;
+     roofline bound; then K2's general path in every limb mode at 16 to
+     512 points (``check_limb_kernel_grids``), as phase 2 holds K1's;
   5. the attractor gate (``pdecontrol_tpu_torch.evaluation.bf16_gate``):
      first the float32 side's rollout at 64 envs x (10 + 20) periods with
      each period replayed from its CUDA graph against the same rollout
@@ -127,8 +132,8 @@ Twenty phases, each timed:
      K1's (phase 2);
  16. the dry run on the card — ``python -m pdecontrol_tpu_torch.parallel.dryrun
      4``: four ranks on the card through gloo, every stage (see that
-     module), and the time of one average of the flagship critic's
-     gradients over ``data``;
+     module) on the JAX dry run's 16-point grid, and the time of one
+     average of the flagship critic's gradients over ``data``;
  17. the mesh — ``runscripts/mbpo_ks_mesh.sh``'s arguments at
      ``DATA_PARALLEL=2 MODEL_PARALLEL=2`` (20 envs, 6 members, rollout batch
      200, policy batch 512) cut as phase 3 (see ``MESH_ARGS``), as four
@@ -192,17 +197,23 @@ Twenty phases, each timed:
      warmup's rewards, the first retrain's ``val_loss``, ``elite_scores``,
      ``epochs`` and ``steps`` and the first evaluation within the floor;
      the largest gap of every iteration's record and the first iteration
-     that parts beyond its floor are printed, and not held.
+     that parts beyond its floor are printed, and not held;
+ 22. other grids — ``MAIN_ARGS`` at 48 points (``--env_config '{"n":
+     48}'``, K1's general path) and at 512 points on eight times the domain
+     (``{"n": 512, "length": 176.0, "pallas_precision": "bf16_3x"}`` with
+     ``--solver pallas_packed``, K2's general path and K1's for the reset
+     transient), each checked as phase 3 and held to the launch counts
+     predicted in ``GRID_RUNS``, printed beside them.
 
-Every retrain of the MBPO paths (phases 3, 6 and 8 to 11, 13 and 19) runs the
-default lock-step fit, its TBPTT and validation steps replayed from CUDA
-graphs: each retrain record must carry that route's fields
+Every retrain of the MBPO paths (phases 3, 6 and 8 to 11, 13, 19, 20 and 22)
+runs the default lock-step fit, its TBPTT and validation steps replayed from
+CUDA graphs: each retrain record must carry that route's fields
 (``t_fit_prep``, ``t_fit_dispatch``, ``t_fit_ready``), and each run's first
 retrain the fit's captures (``t_fit_capture``); the controllers of phases
 13 and 19 built with ``graphs=False`` fit eagerly, and phase 19's
 ``--no_fuse_fit`` route too (``t_fit_val`` in place of ``t_fit_ready``).
 
-Every path of phases 3, 6 to 13, 17, 19 and 20 runs with the kernels' launch counts
+Every path of phases 3, 6 to 13, 17, 19, 20 and 22 runs with the kernels' launch counts
 set to 0 just before it, and they are read just after it (a rank process of
 phase 17 starts at 0 and prints its counts at its end); K1 runs the
 reset-pool transient of every KS path.  The script prints the card's name and power
@@ -265,6 +276,17 @@ K2_FLOPS = {passes: (4 * (8 + 7) + 10, 4 * 2 * 21 * passes) for passes in (1, 3,
 # and on fixed fields: on another smooth field at batch 64 one operand
 # flipped within 20 sub-steps, and u moved by 5.8e-3.
 K2_TOL = (1e-4, 1e-4)
+# The kernels' general path (every grid of 9 to 1,024 points other than 32,
+# 64, ..., 256, which the register path takes), held against the plain
+# versions in phases 2 (K1) and 4 (K2) at these grids and batches, and
+# timed at the grids of phase 22.  8 and 1,025 points lie outside the range
+# and must raise before a launch.  Each grid n has L = 22 n / 64, the
+# flagship's spacing.
+K1_GRIDS = (9, 16, 48, 100, 320, 512, 1000, 1024)
+K2_GRIDS = (16, 48, 320, 512)
+GRID_BATCHES = (1, 12, 64)
+GRID_TIMED = (48, 512)
+OUTSIDE_GRIDS = (8, 1025)
 
 # runscripts/mbpo_ks.sh with --solver pallas.  Cut from the flagship:
 # total_timesteps 50000 -> 5060 (6 iterations after the 5000-step warmup),
@@ -318,6 +340,25 @@ def with_args(args, **changes):
 DISSIPATION_ARGS = with_args(MAIN_ARGS, run_dir=RUN_DIR_DISSIPATION) + [
     "--env_config", json.dumps({"objective": ""})]
 
+
+# Phase 22: the main path on two other grids, cut as phase 3 cuts it:
+# 48 points on the flagship's domain (K1's general path), and 512 points on
+# eight times the domain at the flagship's spacing through K2 at bf16_3x
+# (K2's general path; the reset transient through K1's).  Each beside the
+# launch counts predicted before its first run: the grid does not change
+# how often a path steps its envs, so K1 launches as on the main path at 48
+# points, and at 512 K1 runs the reset pool (920) and K2 the warmup, the
+# two evaluations and the collect steps (500 + 400 + 400 + 6).
+GRID_RUNS = (
+    ("n=48, K1", with_args(MAIN_ARGS, run_dir=os.path.join(HERE, "runs", "chip_smoke_n48"))
+     + ["--env_config", json.dumps({"n": 48})], {"K1": MAIN_K1_LAUNCHES, "K2": 0}),
+    ("n=512, K2 bf16_3x",
+     with_args(MAIN_ARGS, solver="pallas_packed",
+               run_dir=os.path.join(HERE, "runs", "chip_smoke_n512"))
+     + ["--env_config", json.dumps({"n": 512, "length": 176.0,
+                                    "pallas_precision": "bf16_3x"})],
+     {"K1": 920, "K2": 500 + 400 + 400 + 6}),
+)
 
 # Phase 21: the twin on the card (tests/twin_tape.py).
 RUN_DIR_TWIN = os.path.join(HERE, "runs", "chip_smoke_twin")
@@ -674,30 +715,14 @@ def check_kernel(errors):
     print(f"   reset pool (256 states, {pallas_ks.launch_count - before} K1 launches at "
           f"B=64): {time.perf_counter() - t:.4f} s", flush=True)
 
-    timings = {}
-    for b in (10, 64, 100, 1024):
-        u = tensor(rng.uniform(-1, 1, (b, 64)))
-        phi = tensor(rng.uniform(-0.5, 0.5, (b, 64)))
+    def fields(b, n):
+        return tensor(rng.uniform(-1, 1, (b, n))), tensor(rng.uniform(-0.5, 0.5, (b, n)))
 
-        def kernel():
-            return pallas_ks.ks_control_period(ops, u, phi, 1e-3, 250, "l2control")
-
-        def plain():
-            return pallas_ks.ks_control_period_plain(ops, u, phi, 1e-3, 250, "l2control")
-
-        # Plain, kernel, kernel, plain: the two versions alternate.
-        p1 = time_period(plain, 3)
-        k1 = time_period(kernel, 50)
-        k2 = time_period(kernel, 50)
-        p2 = time_period(plain, 3)
-        bound, bound_by = period_bound(b, 64, 250, K1_FLOPS)
-        ms = min(k1, k2)
-        timings[b] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound,
-                      "bound_by": bound_by}
-        print(f"   per control period (250 sub-steps) at B={b}: K1 {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.4f} / {p2:.4f} ms; bound {bound:.4f} ms ({bound_by}), "
-              f"{100 * bound / ms:.2f}% of it", flush=True)
-    return timings
+    timings = time_periods(
+        "K1", lambda ops, u, phi: pallas_ks.ks_control_period(ops, u, phi, 1e-3, 250),
+        lambda ops, u, phi: pallas_ks.ks_control_period_plain(ops, u, phi, 1e-3, 250),
+        [(64, b) for b in (10, 64, 100, 1024)], fields, K1_FLOPS)
+    return {b: t for (_, b), t in timings.items()}
 
 
 def smooth_fields(rng, b, scale, n=64, modes=8):
@@ -709,6 +734,21 @@ def smooth_fields(rng, b, scale, n=64, modes=8):
     f[:, modes:] = 0
     u = np.fft.irfft(f, n=n, axis=-1)
     return (u / np.abs(u).max() * scale).astype(np.float32)
+
+
+def limb_period_fns(precision):
+    """K2 and its plain version over one l2control period at ``precision``,
+    as ``time_periods`` takes them."""
+    from pdecontrol_tpu_torch.ops import pallas_ks_packed as K
+
+    def kernel(ops, u, phi):
+        return K.ks_control_period_packed(ops, u, phi, 1e-3, 250, "l2control", precision)
+
+    def plain(ops, u, phi):
+        return K.ks_control_period_packed_plain(ops, u, phi, 1e-3, 250, "l2control",
+                                                precision)
+
+    return kernel, plain
 
 
 def check_limb_kernel(errors, k1_errors):
@@ -822,29 +862,231 @@ def check_limb_kernel(errors, k1_errors):
                     compare(f"{tag} B={b} 250 sub-steps {name}", g, r)
 
     timings = {}
-    for precision, b in (("bf16_3x", 10), ("bf16_3x", 64), ("bf16_3x", 1024), ("bf16_4x", 10)):
-        u, phi = fields(b)
-
-        def kernel():
-            return K.ks_control_period_packed(ops, u, phi, 1e-3, 250, "l2control", precision)
-
-        def plain():
-            return K.ks_control_period_packed_plain(ops, u, phi, 1e-3, 250, "l2control",
-                                                    precision)
-
-        # Plain, kernel, kernel, plain: the two versions alternate.
-        p1 = time_period(plain, 3)
-        k1 = time_period(kernel, 50)
-        k2 = time_period(kernel, 50)
-        p2 = time_period(plain, 3)
-        bound, bound_by = period_bound(b, 64, 250, K2_FLOPS[K.LIMB_PASSES[precision]])
-        ms = min(k1, k2)
-        timings[precision, b] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound,
-                                 "bound_by": bound_by}
-        print(f"   per {precision} control period (250 sub-steps) at B={b}: K2 {k1:.4f} / "
-              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound {bound:.6f} ms "
-              f"({bound_by}), {100 * bound / ms:.2f}% of it", flush=True)
+    for precision, batches in (("bf16_3x", (10, 64, 1024)), ("bf16_4x", (10,))):
+        timed = time_periods(f"{precision} K2", *limb_period_fns(precision),
+                             [(64, b) for b in batches], fields,
+                             K2_FLOPS[K.LIMB_PASSES[precision]])
+        timings.update({(precision, b): t for (_, b), t in timed.items()})
     return timings
+
+
+def grid_operators(n, device="cuda"):
+    """The operators of an n-point grid at the flagship's spacing."""
+    import torch
+
+    from pdecontrol_tpu_torch.ops.kuramoto import KSOperators
+
+    return KSOperators.create(n, 22.0 * n / 64, dtype=torch.float32,
+                              device=torch.device(device))
+
+
+def refuse_outside(kernel, fn, counter):
+    """Grids outside [9, 1024] must raise ValueError before a launch:
+    ``fn(ops, u)`` calls the wrapper, ``counter()`` reads its launch count."""
+    import torch
+
+    for n in OUTSIDE_GRIDS:
+        u = torch.zeros(2, n, device="cuda")
+        before = counter()
+        try:
+            fn(grid_operators(n), u)
+        except ValueError as e:
+            print(f"   {kernel} at n={n}: ValueError ({e}) before a launch", flush=True)
+        else:
+            raise AssertionError(f"{kernel} took a grid of {n} points")
+        if counter() != before:
+            raise AssertionError(f"{kernel} launched on a grid of {n} points")
+
+
+def time_periods(label, kernel, plain, cases, fields, flops):
+    """A kernel's time per 250-sub-step period for each ``(n, batch)`` of
+    ``cases`` (CUDA events; plain, kernel, kernel, plain: the two versions
+    alternate), beside the plain version's and the roofline bound; keyed by
+    ``(n, batch)``.  ``kernel`` and ``plain`` take ``(ops, u, phi)``,
+    ``fields(b, n)`` draws the inputs."""
+    timings = {}
+    for n, b in cases:
+        ops = grid_operators(n)
+        u, phi = fields(b, n)
+        p1 = time_period(lambda: plain(ops, u, phi), 3)
+        k1 = time_period(lambda: kernel(ops, u, phi), 50)
+        k2 = time_period(lambda: kernel(ops, u, phi), 50)
+        p2 = time_period(lambda: plain(ops, u, phi), 3)
+        bound, bound_by = period_bound(b, n, 250, flops)
+        ms = min(k1, k2)
+        timings[n, b] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound,
+                         "bound_by": bound_by}
+        print(f"   per {label} control period (250 sub-steps) at n={n} B={b}: "
+              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
+              f"{bound:.6f} ms ({bound_by}), {100 * bound / ms:.2f}% of it", flush=True)
+    return timings
+
+
+def check_kernel_grids(errors):
+    """Phase 2, the general path: K1 against its plain version on the
+    host's CPU (a last-bit difference of another summation order can cross
+    the upwind switch, see ``tests/test_torch_cuda.py``), 20 sub-steps at
+    ``K1_GRIDS`` x ``GRID_BATCHES``, both objectives (rtol 2e-5, atol
+    2e-6); 3 periods x 25 sub-steps of ``env.step`` at 48 points, batch 8
+    and unbatched, against the plain solver's env on the CPU (rtol 3e-5,
+    atol 3e-6); grids outside the range raise.  Its inputs come from a
+    generator of their own, so that phase 2's other cases draw what they
+    drew.  Returns the general path's timings."""
+    import numpy as np
+    import torch
+
+    from pdecontrol_tpu_torch.envs.kuramoto import EnvState, KuramotoSivashinsky
+    from pdecontrol_tpu_torch.ops import pallas_ks
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    for objective in ("l2control", "dissipation"):
+        for n in K1_GRIDS:
+            ops_n = grid_operators(n)
+            ops_cpu = grid_operators(n, "cpu")
+            for b in GRID_BATCHES:
+                u = tensor(rng.uniform(-1, 1, (b, n)))
+                phi = tensor(rng.uniform(-0.5, 0.5, (b, n)))
+                got = pallas_ks.ks_control_period(ops_n, u, phi, 1e-3, 20, objective)
+                ref = pallas_ks.ks_control_period_plain(ops_cpu, u.cpu(), phi.cpu(), 1e-3, 20,
+                                                        objective)
+                for name, g, r in zip(("u", "reward"), got, ref):
+                    holds("K1", f"{objective} n={n} B={b} 20 sub-steps {name}", g.cpu(), r,
+                          2e-5, 2e-6, errors)
+
+        kw = dict(n=48, length=16.5, cfg_steps=25, objective=objective, legacy_objective=False)
+        env_k = KuramotoSivashinsky.create(solver="pallas", device=dev, **kw)
+        env_p = KuramotoSivashinsky.create(solver="xla", device=torch.device("cpu"), **kw)
+        for shape in ((8,), ()):
+            u0 = rng.uniform(-1, 1, shape + (48,)).astype(np.float32)
+            steps = np.zeros(shape, np.int32)
+            sk = EnvState(u=tensor(u0), step=torch.as_tensor(steps, device=dev))
+            sp = EnvState(u=torch.as_tensor(u0), step=torch.as_tensor(steps))
+            for t in range(3):
+                a = rng.uniform(-1, 1, shape + (1, 4)).astype(np.float32)
+                sk, ok_ = env_k.step(sk, tensor(a))
+                sp, op_ = env_p.step(sp, torch.as_tensor(a))
+                label = f"{objective} env.step n=48 {list(shape) or 'unbatched'} period {t}"
+                holds("K1", label + " obs", ok_.obs.cpu(), op_.obs, 3e-5, 3e-6, errors)
+                holds("K1", label + " reward", ok_.reward.cpu(), op_.reward, 3e-5, 3e-6,
+                      errors)
+
+    refuse_outside("K1", lambda ops, u: pallas_ks.ks_control_period(ops, u, u, 1e-3, 2),
+                   lambda: pallas_ks.launch_count)
+
+    def fields(b, n):
+        return (tensor(rng.uniform(-1, 1, (b, n))), tensor(rng.uniform(-0.5, 0.5, (b, n))))
+
+    return time_periods(
+        "K1", lambda ops, u, phi: pallas_ks.ks_control_period(ops, u, phi, 1e-3, 250),
+        lambda ops, u, phi: pallas_ks.ks_control_period_plain(ops, u, phi, 1e-3, 250),
+        [(n, b) for n in GRID_TIMED for b in (10, 1024)], fields, K1_FLOPS)
+
+
+def check_limb_kernel_grids(errors, k1_errors):
+    """Phase 4, the general path: K2 against its plain version on the card
+    (``K2_TOL``), on smooth fields with |u| <= 3, 20 sub-steps at
+    ``K2_GRIDS`` x ``GRID_BATCHES``, every limb mode, both objectives.
+    One-pass bf16 is held at batch 1 only: the operand roundings that can
+    flip between two summation orders grow with batch x grid (see
+    ``K2_TOL``), and at batch 64 on 48 points one flipped within 20
+    sub-steps (8.9e-4 on an H100); its gaps at 12 and 64 rows are printed.
+    A row is one block of the same code at any batch, and bf16_3x and
+    bf16_4x are held at every batch.  Then 3
+    periods x 25 sub-steps of ``env.step`` at 48 points for batch 8 (K2),
+    batch 7 and one unbatched state (odd flat batches go to K1's general
+    path, held at 3e-5 / 3e-6 and counted with K1's errors); grids outside
+    the range raise.  A generator of its own, as in phase 2.  Returns the
+    general path's bf16_3x timings."""
+    import numpy as np
+    import torch
+
+    from pdecontrol_tpu_torch.envs.kuramoto import EnvState, KuramotoSivashinsky
+    from pdecontrol_tpu_torch.ops import pallas_ks, pallas_ks_packed as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def fields(b, n):
+        # The lowest n/8 wavenumbers: the flagship's band (8 at 64 points) in
+        # physical units at L = 22 n / 64.  At 16 points the default 8 keeps
+        # every wavenumber but the Nyquist, and on such a rough field
+        # one-pass bf16 flipped an operand within 20 sub-steps (3.8e-4 at
+        # batch 12 on an H100).
+        modes = max(2, n // 8)
+        return (tensor(smooth_fields(rng, b, 3.0, n, modes)),
+                tensor(smooth_fields(rng, b, 0.5, n, modes)))
+
+    ops48 = grid_operators(48)
+    for precision in LIMB_MODES:
+        for objective in ("l2control", "dissipation"):
+            tag = f"{precision} {objective}"
+            for n in K2_GRIDS:
+                ops_n = grid_operators(n)
+                for b in GRID_BATCHES:
+                    u, phi = fields(b, n)
+                    got = K.ks_control_period_packed(ops_n, u, phi, 1e-3, 20, objective,
+                                                     precision)
+                    ref = K.ks_control_period_packed_plain(ops_n, u, phi, 1e-3, 20, objective,
+                                                           precision)
+                    for name, g, r in zip(("u", "reward"), got, ref):
+                        label = f"{tag} n={n} B={b} 20 sub-steps {name}"
+                        if precision == "bf16" and b > 1:
+                            torch.cuda.synchronize()
+                            print(f"   {label}: max abs err {float((g - r).abs().max()):.3e} "
+                                  f"(one-pass bf16 above batch 1: printed, not held)",
+                                  flush=True)
+                        else:
+                            holds("K2", label, g, r, *K2_TOL, errors)
+
+            env = KuramotoSivashinsky.create(n=48, length=16.5, cfg_steps=25,
+                                             objective=objective, legacy_objective=False,
+                                             solver="pallas_packed", pallas_precision=precision,
+                                             device=dev)
+            for shape in ((8,), (7,), ()):
+                flat = int(np.prod(shape))
+                u0 = smooth_fields(rng, flat, 3.0, 48, 6).reshape(shape + (48,))
+                state = EnvState(u=tensor(u0),
+                                 step=torch.zeros(shape, dtype=torch.int32, device=dev))
+                before = K.launch_count
+                for t in range(3):
+                    a = tensor(rng.uniform(-1, 1, shape + (1, 4)))
+                    u_in = state.u.reshape(-1, 48)
+                    phi = env.action_to_phi(a).reshape(-1, 48)
+                    state, out = env.step(state, a)
+                    label = f"{tag} env.step n=48 {list(shape) or 'unbatched'} period {t}"
+                    if flat % 2 == 0:
+                        ref = K.ks_control_period_packed_plain(ops48, u_in, phi, 1e-3, 25,
+                                                               objective, precision)
+                        kernel, tol, errs = "K2", K2_TOL, errors
+                    else:
+                        ref = pallas_ks.ks_control_period_plain(ops48, u_in, phi, 1e-3, 25,
+                                                                objective)
+                        kernel, tol, errs = "K1", (3e-5, 3e-6), k1_errors
+                    holds(kernel, label + " obs", out.obs.reshape(-1, 48), ref[0], *tol, errs)
+                    holds(kernel, label + " reward", out.reward.reshape(-1), ref[1], *tol, errs)
+                torch.cuda.synchronize()
+                launched = K.launch_count - before
+                want = 3 if flat % 2 == 0 else 0
+                print(f"   {tag} env.step n=48 {list(shape) or 'unbatched'}: {launched} K2 "
+                      f"launches", flush=True)
+                if launched != want:
+                    raise AssertionError(f"{launched} K2 launches for batch shape {shape} at "
+                                         f"n=48, expected {want}")
+
+    refuse_outside("K2", lambda ops, u: K.ks_control_period_packed(ops, u, u, 1e-3, 2,
+                                                                   precision="bf16_3x"),
+                   lambda: K.launch_count)
+    return time_periods("bf16_3x K2", *limb_period_fns("bf16_3x"),
+                        [(n, b) for n in GRID_TIMED for b in (10, 1024)], fields,
+                        K2_FLOPS[K.LIMB_PASSES["bf16_3x"]])
 
 
 def gate_routes():
@@ -1116,6 +1358,23 @@ def run_dissipation():
     env_config = json.load(open(os.path.join(RUN_DIR_DISSIPATION, "config.json")))["env_config"]
     if env_config.get("objective") != "" or env_config.get("solver") != "pallas":
         raise AssertionError(f"the dissipation path ran with {env_config}")
+
+
+def run_grids():
+    """Phase 22: the main path at 48 points through K1's general path and
+    at 512 points through K2's (``GRID_RUNS``), each checked as phase 3 and
+    held to the launch counts predicted for it."""
+    for label, args, predicted in GRID_RUNS:
+        run_dir = args[args.index("--run_dir") + 1]
+        counts = run_mbpo(args, run_dir, tuple(k for k, v in predicted.items() if v))
+        print(f"   {label}: launches {json.dumps(counts)}, predicted {json.dumps(predicted)}",
+              flush=True)
+        if counts != predicted:
+            raise AssertionError(f"the {label} path launched {counts}, predicted {predicted}")
+        env_config = json.load(open(os.path.join(run_dir, "config.json")))["env_config"]
+        n = json.loads(args[args.index("--env_config") + 1])["n"]
+        if env_config.get("n") != n:
+            raise AssertionError(f"the {label} path ran with {env_config}")
 
 
 def twin_held(run):
@@ -2082,8 +2341,9 @@ def main() -> int:
     done("1 build K1 and K2", t0)
 
     t0 = phase("2 K1 against the plain version")
-    k1_errors = []
+    k1_errors, k1_grid_errors = [], []
     k1_timings = check_kernel(k1_errors)
+    k1_grid_timings = check_kernel_grids(k1_grid_errors)
     done("2 K1 against the plain version", t0)
 
     t0 = phase("3 main path (float32, K1)")
@@ -2098,8 +2358,9 @@ def main() -> int:
     done("3 main path (float32, K1)", t0)
 
     t0 = phase("4 K2 against the plain version")
-    k2_errors = []
+    k2_errors, k2_grid_errors = [], []
     k2_timings = check_limb_kernel(k2_errors, k1_errors)
+    k2_grid_timings = check_limb_kernel_grids(k2_grid_errors, k1_grid_errors)
     done("4 K2 against the plain version", t0)
 
     t0 = phase("5 attractor gate")
@@ -2183,6 +2444,15 @@ def main() -> int:
     done("21 the twin on the card", t0)
     print(f"== phases 1-21: {time.perf_counter() - start:.2f} s in all", flush=True)
 
+    t0 = phase("22 the main path at 48 and 512 points (general K1, K2)")
+    run_grids()
+    done("22 the main path at 48 and 512 points (general K1, K2)", t0)
+    print(f"== phases 1-22: {time.perf_counter() - start:.2f} s in all", flush=True)
+    for (n, b), t in sorted(k1_grid_timings.items()):
+        print(f"   K1 general path n={n} B={b}: {json.dumps(t)}", flush=True)
+    for (n, b), t in sorted(k2_grid_timings.items()):
+        print(f"   K2 bf16_3x general path n={n} B={b}: {json.dumps(t)}", flush=True)
+
     print(json.dumps({"kernels": [
         {
             "name": "ks_control_period",
@@ -2190,7 +2460,7 @@ def main() -> int:
             "source": "pdecontrol_tpu_torch/csrc/ks_control_period.cu",
             "replaces": "pdecontrol_tpu/ops/pallas_ks.py:100",
             "launches": k1_counts["K1"],
-            "max_abs_err": max(k1_errors),
+            "max_abs_err": max(k1_errors + k1_grid_errors),
             **k1_timings[10],
             "library_ms": None,
         },
@@ -2200,7 +2470,7 @@ def main() -> int:
             "source": "pdecontrol_tpu_torch/csrc/ks_control_period_limb.cu",
             "replaces": "pdecontrol_tpu/ops/pallas_ks_packed.py:213",
             "launches": k2_counts["K2"],
-            "max_abs_err": max(k2_errors),
+            "max_abs_err": max(k2_errors + k2_grid_errors),
             **k2_timings["bf16_3x", 10],
             "library_ms": None,
         },

@@ -44,6 +44,11 @@
 //     is partly filled (1, 2 and 4 rows per block ran equally fast);
 //   * all arithmetic is fp32 (no TF32, no bf16).
 //
+// That register path takes n = 32, 64, ..., 256.  Every other grid of 9 to
+// 1,024 points (the JAX kernel takes any N; below 9 the 9-point stencil
+// wraps onto itself) runs the general path further down: one warp per row,
+// the stage values in a shared-memory window with a copied periodic halo.
+//
 // Plain C interface (built with nvcc into a shared library, called through
 // ctypes); it returns cudaGetLastError() after the launch.
 
@@ -180,6 +185,139 @@ ks_control_period_kernel(const float* __restrict__ u_in, const float* __restrict
   if (lane == 0) rew_out[row] = total / static_cast<float>(cfg_steps);
 }
 
+// ---------------------------------------------------------------------------
+// The general grid: every n in [kMinN, kMaxN] that the register path does not
+// take (not a multiple of 32, or above 256).
+//
+//   * one warp per row and one warp per block, as above; lane l owns the
+//     points l, l + 32, l + 64, ... < n, so neighbouring lanes touch
+//     neighbouring addresses, and at n < 32 lanes n..31 own none;
+//   * a point's state u, forcing phi and running RK4 sum k1 + 2 k2 + 2 k3
+//     (+ k4) sit in dynamic shared memory, touched only by the point's owner;
+//   * each RHS reads the stage values and their squares (one float2 a
+//     point) from a shared window [4 halo | n points | 4 halo] and writes
+//     the next stage's into the other of two windows.  The owners of the
+//     first and last 4 points also write the periodic halo's copies.  One
+//     __syncwarp() per RHS separates a window's writes from its reads: a
+//     window is written again only two RHS evaluations after it was read,
+//     and every lane has passed the barrier in between;
+//   * the tap sums are the register path's, the same taps in the same
+//     order, from a 9-point window read out of shared memory; the squares
+//     are the owner's __fmul_rn, as the register path recomputes them;
+//   * the reward is summed per lane over its points and all sub-steps, and
+//     one warp reduction on the full mask ends the period (lanes that own
+//     no point add zero).
+// Shared memory: 2 (n + 8) float2 + 3n float, 28.8 KB at n = 1,024, under
+// the 48 KB a block has without an opt-in.
+constexpr int kMinN = 9;
+constexpr int kMaxN = 1024;
+
+// Stage value v of point i, with its square, into window w (and into the
+// periodic halo where point i lies within 4 of either end).
+__device__ __forceinline__ void put(float2* w, int i, int n, float v) {
+  const float2 x = make_float2(v, __fmul_rn(v, v));
+  w[kReach + i] = x;
+  if (i < kReach) w[kReach + n + i] = x;
+  if (i >= n - kReach) w[i - (n - kReach)] = x;
+}
+
+template <bool kDissipation>
+__global__ void __launch_bounds__(32)
+ks_control_period_general_kernel(const float* __restrict__ u_in,
+                                 const float* __restrict__ phi_in, float* __restrict__ u_out,
+                                 float* __restrict__ rew_out, int n, float dt, int cfg_steps,
+                                 Taps t) {
+  extern __shared__ float2 smem[];
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const int wn = n + 2 * kReach;
+  float2* cur = smem;
+  float2* nxt = smem + wn;
+  float* su = reinterpret_cast<float*>(smem + 2 * wn);
+  float* sphi = su + n;
+  float* sks = sphi + n;
+
+  const float* u_row = u_in + static_cast<size_t>(row) * n;
+  const float* phi_row = phi_in + static_cast<size_t>(row) * n;
+  for (int i = lane; i < n; i += 32) {
+    const float v = u_row[i];
+    su[i] = v;
+    sphi[i] = phi_row[i];
+    put(cur, i, n, v);
+  }
+  __syncwarp();
+
+  // This lane's reward terms, as in the register path.
+  float a = 0.f, b = 0.f, c = 0.f;
+  for (int s = 0; s < cfg_steps; ++s) {
+#pragma unroll
+    for (int stage = 0; stage < 4; ++stage) {
+      for (int i = lane; i < n; i += 32) {
+        float w[2 * kReach + 1], sq[2 * kReach + 1];
+#pragma unroll
+        for (int j = 0; j <= 2 * kReach; ++j) {
+          const float2 x = cur[i + j];
+          w[j] = x.x;
+          sq[j] = x.y;
+        }
+        float d2 = 0.f, d4 = 0.f, fwd = 0.f, bwd = 0.f;
+#pragma unroll
+        for (int d = -3; d <= 3; ++d) d2 += t.c2[d + 3] * w[kReach + d];
+#pragma unroll
+        for (int d = -4; d <= 4; ++d) d4 += t.c4[d + 4] * w[kReach + d];
+#pragma unroll
+        for (int d = 0; d <= 4; ++d) fwd += t.fw[d] * sq[kReach + d];
+#pragma unroll
+        for (int d = -4; d <= 0; ++d) bwd += t.bw[d + 4] * sq[kReach + d];
+        const float v = w[kReach];
+        const float u_x = (v < 0.f) ? fwd : bwd;
+        const float ph = sphi[i];
+        const float k = -d4 - d2 - 0.5f * u_x + ph;
+        const float u = su[i];
+        float next;
+        if (stage == 0) {
+          if (kDissipation) {
+            a += d2 * d2;
+            b += u_x * u_x;
+            c += u * ph;
+          } else {
+            a += u * u;
+          }
+          sks[i] = k;
+          next = u + dt * k / 2.0f;
+        } else if (stage == 1) {
+          sks[i] += 2.0f * k;
+          next = u + dt * k / 2.0f;
+        } else if (stage == 2) {
+          sks[i] += 2.0f * k;
+          next = u + dt * k;
+        } else {
+          next = u + dt * (sks[i] + k) / 6.0f;
+          su[i] = next;
+        }
+        put(nxt, i, n, next);
+      }
+      __syncwarp();
+      float2* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+  }
+
+  float* u_dst = u_out + static_cast<size_t>(row) * n;
+  for (int i = lane; i < n; i += 32) u_dst[i] = su[i];
+
+  const float inv_n = 1.0f / static_cast<float>(n);
+  float total;
+  if (kDissipation) {
+    const float sa = warp_sum(a), sb = warp_sum(b), sc = warp_sum(c);
+    total = -(sa * inv_n + sb * inv_n + sc * inv_n);
+  } else {
+    total = -(warp_sum(a) * inv_n);
+  }
+  if (lane == 0) rew_out[row] = total / static_cast<float>(cfg_steps);
+}
+
 template <int P>
 void launch(const float* u, const float* phi, float* u_out, float* rew_out, int batch, float dt,
             int cfg_steps, bool dissipation, const Taps& taps, cudaStream_t stream) {
@@ -192,14 +330,27 @@ void launch(const float* u, const float* phi, float* u_out, float* rew_out, int 
   }
 }
 
+void launch_general(const float* u, const float* phi, float* u_out, float* rew_out, int batch,
+                    int n, float dt, int cfg_steps, bool dissipation, const Taps& taps,
+                    cudaStream_t stream) {
+  const size_t smem = 2 * (n + 2 * kReach) * sizeof(float2) + 3 * n * sizeof(float);
+  if (dissipation) {
+    ks_control_period_general_kernel<true><<<batch, 32, smem, stream>>>(
+        u, phi, u_out, rew_out, n, dt, cfg_steps, taps);
+  } else {
+    ks_control_period_general_kernel<false><<<batch, 32, smem, stream>>>(
+        u, phi, u_out, rew_out, n, dt, cfg_steps, taps);
+  }
+}
+
 }  // namespace
 
-// One control period of a [batch, n] float32 batch.  n is a multiple of 32
-// up to 256.
+// One control period of a [batch, n] float32 batch, 9 <= n <= 1024: the
+// register path for n = 32, 64, ..., 256, the general path for the others.
 extern "C" int ks_control_period_f32(const void* u, const void* phi, void* u_out, void* rew_out,
                                      int batch, int n, float dt, int cfg_steps, int dissipation,
                                      const void* taps26, void* stream) {
-  if (n < 32 || n % 32 != 0 || n > 256 || cfg_steps < 1) {
+  if (n < kMinN || n > kMaxN || cfg_steps < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0) return 0;
@@ -213,6 +364,10 @@ extern "C" int ks_control_period_f32(const void* u, const void* phi, void* u_out
   float* ro = static_cast<float*>(rew_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dis = dissipation != 0;
+  if (n % 32 != 0 || n > 256) {
+    launch_general(uu, pp, uo, ro, batch, n, dt, cfg_steps, dis, taps, s);
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (n / 32) {
     case 1: launch<1>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s); break;
     case 2: launch<2>(uu, pp, uo, ro, batch, dt, cfg_steps, dis, taps, s); break;

@@ -81,6 +81,11 @@
 // and a barrier per RHS.  They could pay only at large batches, where these
 // FMAs leave most of the tensor-core bound above unused.
 //
+// That register path takes n = 32, 64, ..., 256.  Every other grid of 9 to
+// 1,024 points runs the general path further down, K1's general path with
+// the limbs: each point's limb words are split once per RHS by its owner
+// and read by its neighbours from a shared-memory window, not shuffled.
+//
 // Plain C interface (built with nvcc into a shared library, called through
 // ctypes); it returns cudaGetLastError() after the launch.
 
@@ -260,6 +265,163 @@ ks_control_period_limb_kernel(const float* __restrict__ u_in, const float* __res
   if (lane == 0) rew_out[row] = total / static_cast<float>(cfg_steps);
 }
 
+// ---------------------------------------------------------------------------
+// The general grid: every n in [kMinN, kMaxN] that the register path does not
+// take (not a multiple of 32, or above 256).  K1's general path
+// (ks_control_period.cu) with the limbs:
+//
+//   * one warp per row and per block; lane l owns the points l, l + 32, ...
+//     < n; a point's u, phi, running RK4 sum and current stage value sit in
+//     dynamic shared memory, touched only by its owner;
+//   * each RHS the owner splits its point's stage value once (split<>, as
+//     above) and writes the two limb words (hi, lo) into a shared window
+//     [4 halo | n points | 4 halo], the periodic halo as second copies; the
+//     neighbours read the words from there, so no limb is computed twice.
+//     Two windows alternate, with one __syncwarp() per RHS (see K1);
+//   * the tap sums are limb_sum<> over a 9-point window of unpacked limbs:
+//     the same taps, one accumulator per limb pass, limb_dot's pass order;
+//   * the reward is summed per lane and reduced once per period on the
+//     full mask (lanes that own no point add zero).
+// Shared memory: 2 (n + 8) x 8 bytes of limb words + 4n floats, 32.9 KB at
+// n = 1,024, under the 48 KB a block has without an opt-in.
+constexpr int kMinN = 9;
+constexpr int kMaxN = 1024;
+
+__device__ __forceinline__ unsigned bits(__nv_bfloat162 h) {
+  unsigned w;
+  std::memcpy(&w, &h, sizeof w);
+  return w;
+}
+
+// The limb words of stage value v of point i into window w (and into the
+// periodic halo where point i lies within 4 of either end): x = the hi word
+// (bf16(v) in the low half, bf16(s) in the high half), y = the lo word (0
+// at one pass).
+template <int kPasses>
+__device__ __forceinline__ void put_limbs(uint2* w, int i, int n, float v) {
+  __nv_bfloat162 hi, lo;
+  split<kPasses>(v, hi, lo);
+  const uint2 x = make_uint2(bits(hi), kPasses >= 3 ? bits(lo) : 0u);
+  w[kReach + i] = x;
+  if (i < kReach) w[kReach + n + i] = x;
+  if (i >= n - kReach) w[i - (n - kReach)] = x;
+}
+
+template <int kPasses, bool kDissipation>
+__global__ void __launch_bounds__(32)
+ks_control_period_limb_general_kernel(const float* __restrict__ u_in,
+                                      const float* __restrict__ phi_in,
+                                      float* __restrict__ u_out, float* __restrict__ rew_out,
+                                      int n, float dt, int cfg_steps, LimbTaps t) {
+  extern __shared__ uint2 smem_words[];
+  constexpr int kW = 2 * kReach + 1;
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+  const int wn = n + 2 * kReach;
+  uint2* cur = smem_words;
+  uint2* nxt = smem_words + wn;
+  float* su = reinterpret_cast<float*>(smem_words + 2 * wn);
+  float* sphi = su + n;
+  float* sks = sphi + n;
+  float* sv = sks + n;  // the point's current stage value
+
+  const float* u_row = u_in + static_cast<size_t>(row) * n;
+  const float* phi_row = phi_in + static_cast<size_t>(row) * n;
+  for (int i = lane; i < n; i += 32) {
+    const float v = u_row[i];
+    su[i] = v;
+    sv[i] = v;
+    sphi[i] = phi_row[i];
+    put_limbs<kPasses>(cur, i, n, v);
+  }
+  __syncwarp();
+
+  // This lane's reward terms, as in the register path.
+  float a = 0.f, b = 0.f, c = 0.f;
+  for (int s = 0; s < cfg_steps; ++s) {
+#pragma unroll
+    for (int stage = 0; stage < 4; ++stage) {
+      for (int i = lane; i < n; i += 32) {
+        // The window's limbs as float: value hi and lo, square hi and lo.
+        float vh[kW], vl[kW], sh[kW], sl[kW];
+#pragma unroll
+        for (int j = 0; j < kW; ++j) {
+          const uint2 x = cur[i + j];
+          vh[j] = __uint_as_float(x.x << 16);
+          sh[j] = __uint_as_float(x.x & 0xffff0000u);
+          if (kPasses >= 3) {
+            vl[j] = __uint_as_float(x.y << 16);
+            sl[j] = __uint_as_float(x.y & 0xffff0000u);
+          }
+        }
+        const float d2 = limb_sum<kPasses>(t.c2h, t.c2l, vh, vl, kReach - 3);
+        const float d4 = limb_sum<kPasses>(t.c4h, t.c4l, vh, vl, 0);
+        const float fwd = limb_sum<kPasses>(t.fwh, t.fwl, sh, sl, kReach);
+        const float bwd = limb_sum<kPasses>(t.bwh, t.bwl, sh, sl, 0);
+        const float v = sv[i];
+        const float u_x = (v < 0.f) ? fwd : bwd;
+        const float ph = sphi[i];
+        const float k = (d2 + d4) - 0.5f * u_x + ph;
+        const float u = su[i];
+        float next;
+        if (stage == 0) {
+          if (kDissipation) {
+            a += d2 * d2;
+            b += u_x * u_x;
+            c += u * ph;
+          } else {
+            a += u * u;
+          }
+          sks[i] = k;
+          next = u + dt * k / 2.0f;
+        } else if (stage == 1) {
+          sks[i] += 2.0f * k;
+          next = u + dt * k / 2.0f;
+        } else if (stage == 2) {
+          sks[i] += 2.0f * k;
+          next = u + dt * k;
+        } else {
+          next = u + dt * (sks[i] + k) / 6.0f;
+          su[i] = next;
+        }
+        sv[i] = next;
+        put_limbs<kPasses>(nxt, i, n, next);
+      }
+      __syncwarp();
+      uint2* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+  }
+
+  float* u_dst = u_out + static_cast<size_t>(row) * n;
+  for (int i = lane; i < n; i += 32) u_dst[i] = su[i];
+
+  const float inv_n = 1.0f / static_cast<float>(n);
+  float total;
+  if (kDissipation) {
+    const float sa = warp_sum(a), sb = warp_sum(b), sc = warp_sum(c);
+    total = -(sa * inv_n + sb * inv_n + sc * inv_n);
+  } else {
+    total = -(warp_sum(a) * inv_n);
+  }
+  if (lane == 0) rew_out[row] = total / static_cast<float>(cfg_steps);
+}
+
+template <int kPasses>
+void launch_general(const float* u, const float* phi, float* u_out, float* rew_out, int batch,
+                    int n, float dt, int cfg_steps, bool dissipation, const LimbTaps& taps,
+                    cudaStream_t stream) {
+  const size_t smem = 2 * (n + 2 * kReach) * sizeof(uint2) + 4 * n * sizeof(float);
+  if (dissipation) {
+    ks_control_period_limb_general_kernel<kPasses, true><<<batch, 32, smem, stream>>>(
+        u, phi, u_out, rew_out, n, dt, cfg_steps, taps);
+  } else {
+    ks_control_period_limb_general_kernel<kPasses, false><<<batch, 32, smem, stream>>>(
+        u, phi, u_out, rew_out, n, dt, cfg_steps, taps);
+  }
+}
+
 template <int P, int kPasses>
 void launch(const float* u, const float* phi, float* u_out, float* rew_out, int batch, float dt,
             int cfg_steps, bool dissipation, const LimbTaps& taps, cudaStream_t stream) {
@@ -276,6 +438,10 @@ template <int kPasses>
 void launch_passes(const float* u, const float* phi, float* u_out, float* rew_out, int batch,
                    int n, float dt, int cfg_steps, bool dis, const LimbTaps& taps,
                    cudaStream_t s) {
+  if (n % 32 != 0 || n > 256) {
+    launch_general<kPasses>(u, phi, u_out, rew_out, batch, n, dt, cfg_steps, dis, taps, s);
+    return;
+  }
   switch (n / 32) {
     case 1: launch<1, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s); break;
     case 2: launch<2, kPasses>(u, phi, u_out, rew_out, batch, dt, cfg_steps, dis, taps, s); break;
@@ -291,12 +457,13 @@ void launch_passes(const float* u, const float* phi, float* u_out, float* rew_ou
 }  // namespace
 
 // One control period of a [batch, n] float32 batch at 1, 3 or 4 limb
-// passes.  n is a multiple of 32 up to 256.
+// passes, 9 <= n <= 1024: the register path for n = 32, 64, ..., 256, the
+// general path for the others.
 extern "C" int ks_control_period_limb(const void* u, const void* phi, void* u_out,
                                       void* rew_out, int batch, int n, float dt, int cfg_steps,
                                       int dissipation, int passes, const void* taps52,
                                       void* stream) {
-  if (n < 32 || n % 32 != 0 || n > 256 || cfg_steps < 1) {
+  if (n < kMinN || n > kMaxN || cfg_steps < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (passes != 1 && passes != 3 && passes != 4) {

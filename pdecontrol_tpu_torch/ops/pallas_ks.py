@@ -7,10 +7,16 @@ period and returns ``(u_next [B, N], reward [B])``, as
 
   * for a tensor on the GPU it launches the CUDA kernel
     ``csrc/ks_control_period.cu`` (built at first use, one launch per
-    period, one warp per row) or raises;
+    period, one warp per row: a register path for n = 32, 64, ..., 256 and
+    a shared-memory path for every other n) or raises;
   * for a tensor on the CPU it runs ``ks_control_period_plain``, this
     module's plain PyTorch version of the same arithmetic (the TPU kernel's
     ``[u | u^2] @ W`` form with the block-diagonal ``fused_stencil_matrix``).
+
+The kernels take every grid of ``MIN_N`` to ``MAX_N`` points, on either
+device: below 9 the 9-point stencil wraps onto itself, and 1,024 is where
+the JAX kernel's ``[2N, 4N]`` operator fills 32 MiB of VMEM.  Outside that
+range the wrapper raises ``ValueError`` before any launch.
 
 ``launch_count`` counts the kernel's launches, so that a run can show it
 went through the kernel, and ``rows_launched`` the rows they stepped.  A
@@ -30,6 +36,8 @@ import torch
 from pdecontrol_tpu_torch.ops.kuramoto import DISSIPATION, L2CONTROL, KSOperators
 
 SOURCE = "ks_control_period.cu"
+#: The grids the kernels take (K1 and K2 alike).
+MIN_N, MAX_N = 9, 1024
 
 #: Launches of the CUDA kernel since import (or since a caller reset it).
 launch_count = 0
@@ -65,6 +73,12 @@ def stencil_taps(ops: KSOperators) -> np.ndarray:
     fw = [upwind[d % n, 0] for d in range(0, 5)]
     bw = [upwind[d % n, n] for d in range(-4, 1)]
     return np.ascontiguousarray(np.array(c2 + c4 + fw + bw, np.float32))
+
+
+def check_grid(n: int) -> None:
+    """Raise ``ValueError`` for a grid outside ``[MIN_N, MAX_N]``."""
+    if not MIN_N <= n <= MAX_N:
+        raise ValueError(f"the KS kernels take grids of {MIN_N} to {MAX_N} points, got {n}")
 
 
 def ks_control_period_plain(
@@ -145,6 +159,7 @@ def ks_control_period(
         raise ValueError(f"unknown objective {objective!r}")
     if u.shape[1] != ops.n:
         raise ValueError(f"state has {u.shape[1]} points, operators {ops.n}")
+    check_grid(ops.n)
     if u.device.type == "cpu":
         return ks_control_period_plain(ops, u, phi, dt, cfg_steps, objective)
     if u.device.type != "cuda":

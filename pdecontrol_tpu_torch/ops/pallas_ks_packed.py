@@ -32,8 +32,11 @@ operator builders keep the packed layout and the JAX names, so they can be
 held bit-equal to the JAX ones.
 
 ``ks_control_period_packed`` launches ``csrc/ks_control_period_limb.cu`` for
-a float32 batch on the GPU (built at first use, one launch per period) or
-raises, and runs ``ks_control_period_packed_plain`` for one on the CPU.
+a float32 batch on the GPU (built at first use, one launch per period; a
+register path for n = 32, 64, ..., 256, a shared-memory path for the other
+grids) or raises, and runs ``ks_control_period_packed_plain`` for one on
+the CPU.  It takes K1's grids, ``pallas_ks.MIN_N`` to ``MAX_N`` points, and
+raises ``ValueError`` outside them before any launch.
 ``launch_count`` counts the kernel's launches (a CUDA graph's replays
 included, see ``utils/graphs.py``), and ``rows_launched`` the rows they
 stepped.
@@ -262,6 +265,7 @@ def ks_control_period_packed(
         raise ValueError(f"expected batched [B, N] state, got {tuple(u.shape)}")
     if u.shape[1] != ops.n:
         raise ValueError(f"state has {u.shape[1]} points, operators {ops.n}")
+    pallas_ks.check_grid(ops.n)
     if u.dtype != torch.float32 or phi.dtype != torch.float32:
         raise TypeError(f"the kernel is float32-only, got {u.dtype} / {phi.dtype}")
     if precision == "highest":

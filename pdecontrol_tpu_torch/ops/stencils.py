@@ -82,10 +82,11 @@ SECOND_DERIV_CENTRAL_4: Mapping[int, float] = {
 def circulant(taps: Mapping[int, float], n: int, dtype=np.float64) -> np.ndarray:
     """Dense circulant ``D`` with ``(D @ u)[i] = sum_d taps[d] * u[(i+d) % n]``."""
     mat = np.zeros((n, n), dtype=np.float64)
+    rows = np.arange(n)
     for d, c in taps.items():
-        for i in range(n):
-            mat[i, (i + d) % n] += c
-    return mat.astype(dtype)
+        # One tap's entries are distinct for a fixed d: the per-entry loop's sums.
+        mat[rows, (rows + d) % n] += c
+    return mat.astype(dtype, copy=False)
 
 
 def taps_to_kernel(taps: Mapping[int, float], width: int | None = None) -> np.ndarray:

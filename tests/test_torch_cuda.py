@@ -4,10 +4,13 @@ tests/test_pallas_ks.py over 20 sub-steps, rtol 1e-4 / atol 1e-5 over a
 full period of 250; K2's limb modes at rtol 1e-4 / atol 1e-4, the
 tolerance of tests/test_torch_packed.py against the JAX kernel body, over
 20 sub-steps and, at 3 and 4 passes, over a full period).  Both kernels run
-one warp per row with the state in registers, so the cases cover every
-batch shape the main path launches (1 to 1024 rows) and grids of 32, 64
-and 128 points (1, 2 and 4 points per lane), and K2 also 96 and 256 (3 and
-8 points per lane).  A group holds a checkpoint's round trip on the
+one warp per row with the state in registers on grids of 32, 64, ..., 256
+points, so the cases cover every batch shape the main path launches (1 to
+1024 rows) and grids of 32, 64 and 128 points (1, 2 and 4 points per lane),
+and K2 also 96 and 256 (3 and 8 points per lane); every other grid of 9 to
+1,024 points runs their shared-memory path, held at 9 to 1,024 points (K2
+at 16 to 512), and outside that range both wrappers raise before a launch.
+A group holds a checkpoint's round trip on the
 card: bit-equal tensors that come back on the card, a generator that goes on
 with the saved stream, and a resumed run that learns on.  The next holds the
 fused iteration's CUDA graph to its eager body: a capture that leaves the
@@ -110,10 +113,42 @@ def test_kernel_wrapper_raises_instead_of_falling_back(dev):
     strided = torch.zeros(64, 8, device=dev).t()
     with pytest.raises(ValueError):
         pallas_ks.ks_control_period(ops, strided, strided, 1e-3, 2)
-    ops32 = KSOperators.create(48, 22.0, device=dev)  # not a multiple of 32
-    u = torch.zeros(2, 48, device=dev)
-    with pytest.raises(RuntimeError):
-        pallas_ks.ks_control_period(ops32, u, u, 1e-3, 2)
+    # 48 points (not a multiple of 32) run the general path; 8 and 1,025
+    # points lie outside the kernels' grids and raise before a launch.
+    ops48, u, phi = _k1_inputs(dev, 2, 48, 48)
+    before = pallas_ks.launch_count
+    got = pallas_ks.ks_control_period(ops48, u, phi, 1e-3, 20)
+    torch.cuda.synchronize()
+    assert pallas_ks.launch_count == before + 1
+    ref = pallas_ks.ks_control_period_plain(ops48, u.cpu(), phi.cpu(), 1e-3, 20)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=2e-5, atol=2e-6)
+    for n in (8, 1025):
+        ops_n = KSOperators.create(n, 22.0 * n / 64, device=dev)
+        u = torch.zeros(2, n, device=dev)
+        before = pallas_ks.launch_count
+        with pytest.raises(ValueError, match="9 to 1024 points"):
+            pallas_ks.ks_control_period(ops_n, u, u, 1e-3, 2)
+        assert pallas_ks.launch_count == before
+
+
+@pytest.mark.parametrize("objective", ["l2control", "dissipation"])
+@pytest.mark.parametrize("n", [9, 16, 48, 100, 320, 512, 1000, 1024])
+@pytest.mark.parametrize("batch", [1, 12, 64])
+def test_general_grid_kernel_matches_plain_version(dev, objective, n, batch):
+    """K1's shared-memory path: grids below 32 points (lanes without a
+    point), between the register path's, and above 256, up to 1,024 (32
+    points per lane)."""
+    from pdecontrol_tpu_torch.ops import pallas_ks
+
+    ops, u, phi = _k1_inputs(dev, batch, n, n + batch)
+    before = pallas_ks.launch_count
+    got = pallas_ks.ks_control_period(ops, u, phi, 1e-3, 20, objective)
+    torch.cuda.synchronize()
+    assert pallas_ks.launch_count == before + 1
+    ref = pallas_ks.ks_control_period_plain(ops, u.cpu(), phi.cpu(), 1e-3, 20, objective)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=2e-5, atol=2e-6)
 
 
 def _k2_inputs(dev, batch, n, seed):
@@ -211,12 +246,45 @@ def test_limb_kernel_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         pallas_ks_packed.ks_control_period_packed(ops, strided, strided, 1e-3, 2,
                                                   precision="bf16_3x")
-    ops48 = KSOperators.create(48, 22.0, device=dev)  # not a multiple of 32
-    u = torch.zeros(2, 48, device=dev)
+    # 48 points (not a multiple of 32) run the general path; 8 and 1,025
+    # points lie outside the kernels' grids and raise before a launch.
+    ops48, u, phi = _k2_inputs(dev, 2, 48, 48)
     before = pallas_ks_packed.launch_count
-    with pytest.raises(RuntimeError):
-        pallas_ks_packed.ks_control_period_packed(ops48, u, u, 1e-3, 2, precision="bf16_3x")
-    assert pallas_ks_packed.launch_count == before
+    got = pallas_ks_packed.ks_control_period_packed(ops48, u, phi, 1e-3, 20,
+                                                    precision="bf16_3x")
+    torch.cuda.synchronize()
+    assert pallas_ks_packed.launch_count == before + 1
+    ref = pallas_ks_packed.ks_control_period_packed_plain(ops48, u, phi, 1e-3, 20,
+                                                          precision="bf16_3x")
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    for n in (8, 1025):
+        ops_n = KSOperators.create(n, 22.0 * n / 64, device=dev)
+        u = torch.zeros(2, n, device=dev)
+        before = pallas_ks_packed.launch_count
+        with pytest.raises(ValueError, match="9 to 1024 points"):
+            pallas_ks_packed.ks_control_period_packed(ops_n, u, u, 1e-3, 2,
+                                                      precision="bf16_3x")
+        assert pallas_ks_packed.launch_count == before
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16_3x", "bf16_4x"])
+@pytest.mark.parametrize("objective", ["l2control", "dissipation"])
+@pytest.mark.parametrize("n", [16, 48, 320, 512])
+def test_general_grid_limb_kernel_matches_plain_version(dev, precision, objective, n):
+    """K2's shared-memory path, the limb words read from the window."""
+    from pdecontrol_tpu_torch.ops import pallas_ks_packed
+
+    ops, u, phi = _k2_inputs(dev, 8, n, n)
+    before = pallas_ks_packed.launch_count
+    got = pallas_ks_packed.ks_control_period_packed(ops, u, phi, 1e-3, 20, objective,
+                                                    precision)
+    torch.cuda.synchronize()
+    assert pallas_ks_packed.launch_count == before + 1
+    ref = pallas_ks_packed.ks_control_period_packed_plain(ops, u, phi, 1e-3, 20, objective,
+                                                          precision)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
 
 
 # ------------------------------------------------------ checkpoint and resume

@@ -43,6 +43,19 @@ def test_apply_taps_numpy_matches_jax_and_the_matrix(name):
                                rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("n", [3, 8, 9, 64, 1024])
+@pytest.mark.parametrize("name", TAPS)
+def test_circulant_matches_jax(name, n):
+    """The port builds the circulant a tap at a time, the JAX package an
+    entry at a time: bit-equal, also where n is below the stencil's width
+    and taps share an entry."""
+    for dtype in (np.float64, np.float32):
+        got = TS.circulant(getattr(TS, name), n, dtype)
+        want = JS.circulant(getattr(JS, name), n, dtype)
+        assert got.dtype == want.dtype == dtype
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("name,order", [("FIRST_DERIV_CENTRAL_2", 1),
                                         ("SECOND_DERIV_CENTRAL_6", 2),
