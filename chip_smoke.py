@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-two phases, each timed:
+Twenty-three phases, each timed:
 
   1. build — compile kernels K1 (``pdecontrol_tpu_torch/csrc/
      ks_control_period.cu``) and K2 (``csrc/ks_control_period_limb.cu``)
@@ -203,7 +203,22 @@ Twenty-two phases, each timed:
      (``{"n": 512, "length": 176.0, "pallas_precision": "bf16_3x"}`` with
      ``--solver pallas_packed``, K2's general path and K1's for the reset
      transient), each checked as phase 3 and held to the launch counts
-     predicted in ``GRID_RUNS``, printed beside them.
+     predicted in ``GRID_RUNS``, printed beside them;
+ 23. the latent and Burgers twins on the card — ``tests/twin_tape.py``'s
+     ``latent`` (``runscripts/mbpo_ks_latent_r4.sh``'s structure:
+     ``KSLatentConvolutionalLSTM``, re-encoding world steps) and
+     ``burgers`` (``runscripts/mbpo_burgers.sh``'s: ``BurgersEnv-v0``,
+     rewards scaled by 500) tapes, each held as phase 21 holds the
+     flagship's, whose twins ``tests/test_torch_twin_latent.py`` and
+     ``tests/test_torch_twin_burgers.py`` hold to the JAX package in
+     float64.  The latent tape runs through K1 on 32 points (the register
+     path) and must launch it ``TWIN_K1_LAUNCHES["latent"]`` times; its
+     floor is phase 21's.  The Burgers tape runs on the card alone (it
+     has one solver, plain PyTorch) and must launch neither kernel; its
+     floor adds two gaps from the CPU run: SAC rows reversed, and every
+     control period moved by +-the gap of one Burgers period on the card
+     from the same period on the host's CPU over the twin's reset pool
+     (at least one float32 ulp of the pool's largest value).
 
 Every retrain of the MBPO paths (phases 3, 6 and 8 to 11, 13, 19, 20 and 22)
 runs the default lock-step fit, its TBPTT and validation steps replayed from
@@ -213,7 +228,7 @@ retrain the fit's captures (``t_fit_capture``); the controllers of phases
 13 and 19 built with ``graphs=False`` fit eagerly, and phase 19's
 ``--no_fuse_fit`` route too (``t_fit_val`` in place of ``t_fit_ready``).
 
-Every path of phases 3, 6 to 13, 17, 19, 20 and 22 runs with the kernels' launch counts
+Every path of phases 3, 6 to 13, 17, 19 to 23 runs with the kernels' launch counts
 set to 0 just before it, and they are read just after it (a rank process of
 phase 17 starts at 0 and prints its counts at its end); K1 runs the
 reset-pool transient of every KS path.  The script prints the card's name and power
@@ -363,6 +378,12 @@ GRID_RUNS = (
 # Phase 21: the twin on the card (tests/twin_tape.py).
 RUN_DIR_TWIN = os.path.join(HERE, "runs", "chip_smoke_twin")
 TWIN_HOST_TIMEOUT = 600
+# Phase 23: the latent and Burgers twins.  K1 launches once per batched env
+# step: the latent tape's 5-step warmup, its evaluation (8 steps), 10
+# iterations and the evaluations at 0, 4 and 8 (8 steps each), one more
+# than phase 21's flagship tape (a 4-step warmup).  The Burgers tape must
+# launch neither kernel.
+TWIN_K1_LAUNCHES = {"latent": 47}
 
 
 # Phase 13: the main path with the phases one after another (each a graph),
@@ -1388,29 +1409,71 @@ def twin_held(run):
                                   run["evals"][0]["eval_return_std"]]}
 
 
-def run_twin(k1_errors):
-    """Phase 21: the twin's tape on the card against the port on the host."""
+def burgers_period_gap():
+    """The perturbation of the Burgers twin's floor: the largest gap of one
+    float32 Burgers control period on the card from the same period on the
+    host's CPU (field and reward), over the twin's reset pool at actions
+    drawn from a seed, and no less than one float32 ulp of the pool's
+    largest value."""
+    import numpy as np
+    import torch
+
+    from pdecontrol_tpu_torch.envs.burgers import Burgers
+    from tests import twin_tape as T
+
+    config = T.TWINS["burgers"].config
+    size = config["pool_size"]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        env = Burgers.create(**config["env_config"], dtype=torch.float32,
+                             device=torch.device(device))
+        u = torch.as_tensor(T.reset_pool(T.Tape(), env, size), dtype=torch.float32,
+                            device=device)
+        actions = torch.as_tensor(np.random.default_rng(0).uniform(
+            -1, 1, (size,) + tuple(env.action_shape)), dtype=torch.float32, device=device)
+        state, out = env.step(env._fresh(u, (size,), None), actions)
+        outs[device] = (state.u.cpu().double(), out.reward.cpu().double())
+        ulp = float(np.spacing(np.float32(u.abs().max().item())))
+    gaps = [float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"])]
+    print(f"   one Burgers period, card against the CPU: field {gaps[0]:.3e}, reward "
+          f"{gaps[1]:.3e}; one ulp of the pool's largest value {ulp:.3e}", flush=True)
+    return max(gaps + [ulp])
+
+
+def run_twin(k1_errors, name="flagship"):
+    """Phase 21 (the flagship's tape) and 23 (``latent``, ``burgers``): the
+    twin's tape on the card against the port on the host."""
     import torch
 
     from tests import twin_tape as T
 
-    shutil.rmtree(RUN_DIR_TWIN, ignore_errors=True)
-    os.makedirs(RUN_DIR_TWIN)
-    eps = max(k1_errors)
+    burgers = T.TWINS[name].config["env_id"] == "BurgersEnv-v0"
+    run_dir = RUN_DIR_TWIN if name == "flagship" else os.path.join(RUN_DIR_TWIN, name)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    eps = burgers_period_gap() if burgers else max(k1_errors)
     host = subprocess.Popen([sys.executable, os.path.join(HERE, "tests", "twin_tape.py"),
-                             RUN_DIR_TWIN, repr(eps)],
+                             run_dir, repr(eps), name],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    card_runs = ((("card", "xla"),) if burgers
+                 else (("card K1", "pallas"), ("card plain", "xla")))
     runs = {}
     try:
-        for name, solver in (("card K1", "pallas"), ("card plain", "xla")):
+        for label, solver in card_runs:
             t = time.perf_counter()
-            run, counts = counted_run(f"the twin's learn() on the card ({solver})", lambda: (
-                T.run_port(os.path.join(RUN_DIR_TWIN, name.replace(" ", "_")),
+            run, counts = counted_run(f"the {name} twin's learn() on the card ({solver})", lambda: (
+                T.run_port(name, os.path.join(run_dir, label.replace(" ", "_")),
                            torch.device("cuda"), torch.float32, solver=solver, graphs=False)))
-            if (counts["K1"] > 0) != (solver == "pallas") or counts["K2"]:
-                raise AssertionError(f"the twin through {solver} launched {counts}")
-            print(f"   {name}: {time.perf_counter() - t:.2f} s", flush=True)
-            runs[name] = run
+            if counts["K2"] or (counts["K1"] > 0) != (solver == "pallas" and not burgers):
+                raise AssertionError(f"the {name} twin through {solver} launched {counts}")
+            if name in TWIN_K1_LAUNCHES and solver == "pallas":
+                print(f"   K1 launches {counts['K1']}, predicted {TWIN_K1_LAUNCHES[name]}",
+                      flush=True)
+                if counts["K1"] != TWIN_K1_LAUNCHES[name]:
+                    raise AssertionError(f"the {name} twin launched K1 {counts['K1']} times, "
+                                         f"predicted {TWIN_K1_LAUNCHES[name]}")
+            print(f"   {label}: {time.perf_counter() - t:.2f} s", flush=True)
+            runs[label] = run
         t = time.perf_counter()
         _, stderr = host.communicate(timeout=TWIN_HOST_TIMEOUT)
         if host.returncode != 0:
@@ -1421,27 +1484,33 @@ def run_twin(k1_errors):
         if host.poll() is None:
             host.kill()
             host.communicate()
-    for name in ("cpu", "cpu_reordered", "cpu_perturbed"):
-        with open(os.path.join(RUN_DIR_TWIN, name + ".json")) as f:
-            runs[name.replace("_", " ")] = json.load(f)
-    digests = {name: run["weights_digest"] for name, run in runs.items()}
+    for cpu_run in ("cpu", "cpu_reordered", "cpu_perturbed"):
+        with open(os.path.join(run_dir, cpu_run + ".json")) as f:
+            runs[cpu_run.replace("_", " ")] = json.load(f)
+    digests = {label: run["weights_digest"] for label, run in runs.items()}
     if len(set(digests.values())) != 1:
         raise AssertionError(f"the twin's runs started from other weights: {digests}")
 
-    sources = ("cpu reordered", "cpu perturbed", "card plain")
+    held_run = card_runs[0][0]
+    sources = ("cpu reordered", "cpu perturbed") + (() if burgers else ("card plain",))
     ref = twin_held(runs["cpu"])
     parts = {n: {k: T.gap(twin_held(runs[n])[k], v) for k, v in ref.items()} for n in sources}
     floor = {k: sum(parts[n][k] for n in sources) for k in ref}
-    held = {k: T.gap(twin_held(runs["card K1"])[k], v) for k, v in ref.items()}
-    print(f"   the floor's sources: SAC rows reversed on the CPU; every period moved by "
-          f"+-{eps:.3e} (phase 2's K1 max_abs_err) on the CPU; the plain solver on the card",
-          flush=True)
+    held = {k: T.gap(twin_held(runs[held_run])[k], v) for k, v in ref.items()}
+    if burgers:
+        print(f"   the floor's sources: SAC rows reversed on the CPU; every period moved by "
+              f"+-{eps:.3e} (one Burgers period's gap, card against the CPU) on the CPU",
+              flush=True)
+    else:
+        print(f"   the floor's sources: SAC rows reversed on the CPU; every period moved by "
+              f"+-{eps:.3e} (phase 2's K1 max_abs_err) on the CPU; the plain solver on the "
+              f"card", flush=True)
     for k in ref:
-        print(f"   {k}: card K1 against the CPU {held[k]:.3e}, floor {floor[k]:.3e} ("
+        print(f"   {k}: {held_run} against the CPU {held[k]:.3e}, floor {floor[k]:.3e} ("
               + ", ".join(f"{n} {parts[n][k]:.3e}" for n in sources) + ")", flush=True)
     parted = [k for k in ref if held[k] > floor[k]]
 
-    gaps = T.record_gaps(runs["card K1"]["records"], runs["cpu"]["records"])
+    gaps = T.record_gaps(runs[held_run]["records"], runs["cpu"]["records"])
     source_gaps = {n: T.record_gaps(runs[n]["records"], runs["cpu"]["records"])
                    for n in sources}
     first_parting = None
@@ -1458,8 +1527,8 @@ def run_twin(k1_errors):
         f"{first_parting[0]} ({first_parting[1]} {first_parting[2]:.3e} > "
         f"{first_parting[3]:.3e})"), flush=True)
     if parted:
-        raise AssertionError(f"the card's K1 run parts from the CPU beyond the float32 floor "
-                             f"in {parted}")
+        raise AssertionError(f"the card's {name} run parts from the CPU beyond the float32 "
+                             f"floor in {parted}")
 
 
 def print_retrains(run_dir):
@@ -2448,6 +2517,12 @@ def main() -> int:
     run_grids()
     done("22 the main path at 48 and 512 points (general K1, K2)", t0)
     print(f"== phases 1-22: {time.perf_counter() - start:.2f} s in all", flush=True)
+
+    t0 = phase("23 the latent and Burgers twins on the card")
+    for name in ("latent", "burgers"):
+        run_twin(k1_errors, name)
+    done("23 the latent and Burgers twins on the card", t0)
+    print(f"== phases 1-23: {time.perf_counter() - start:.2f} s in all", flush=True)
     for (n, b), t in sorted(k1_grid_timings.items()):
         print(f"   K1 general path n={n} B={b}: {json.dumps(t)}", flush=True)
     for (n, b), t in sorted(k2_grid_timings.items()):

@@ -1,7 +1,7 @@
 """The numbers of a long MBPO run, read from what it left behind:
 
     python -m pdecontrol_tpu_torch.viz.long_run --run_dir results/torch_ks50k \\
-        [--log runs/torch_ks50k.log]
+        [--log runs/torch_ks50k.log] [--every 10000]
 
 reads ``metrics.jsonl`` (or ``metrics.jsonl.gz``) of ``--run_dir`` and
 prints one JSON object:
@@ -9,8 +9,9 @@ prints one JSON object:
   * ``summary``: ``viz/report.py``'s (first, best and last eval return, wall
     time, env steps), and whether the best eval return lies in the band of
     the JAX package's flagship 50k runs (``JAX_BAND``);
-  * ``eval_at``: the eval return at every 10,000 env steps sampled (the
-    evaluation at or just before each);
+  * ``eval_at``: the eval return at every 10,000 env steps sampled, or
+    every ``--every`` (5,000 for a Burgers run; the evaluation at or just
+    before each);
   * ``horizons``: per horizon, the count of non-retrain, non-evaluation
     iterations and the median, least and largest of their dispatch to pull
     (``t_dispatch + t_ready``, seconds; ``t_ready`` spans the next
@@ -39,9 +40,9 @@ beside JAX, and prints one JSON object (``compare``):
     MBPO run on a channel, JAX's), with that step's ratio to 50,000, its
     evaluations to 50k and its first record's qf loss; beside them the
     JAX package's SAC baseline run on the CPU (``JAX_CPU_SAC``);
-  * the bf16_3x and dissipation runs beside their JAX runs, and, for a run
-    that reached 50k env steps, whether its best lies under its limit
-    (``PAIRS``);
+  * the bf16_3x, dissipation, latent and Burgers runs beside their JAX
+    runs, each at its marks, and, for a run that reached its full length,
+    whether its best lies under its limit (``PAIRS``);
   * the lag test: the port's flagship seeds against the JAX flagship runs
     (``jax_flagship_runs``), each run's mean eval return over the 10k ...
     50k marks, the one-sided exact permutation p of the port's mean
@@ -60,7 +61,7 @@ import json
 import os
 import re
 import sys
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -167,9 +168,9 @@ def from_log(path: str) -> Dict:
     return {"memory": memory, "rank": rank}
 
 
-def report(run_dir: str, log: Optional[str] = None) -> Dict:
+def report(run_dir: str, log: Optional[str] = None, every: int = EVAL_EVERY) -> Dict:
     recs = load(run_dir)
-    out = {"summary": summary(recs), "eval_at": eval_at(recs), "horizons": horizons(recs),
+    out = {"summary": summary(recs), "eval_at": eval_at(recs, every), "horizons": horizons(recs),
            "retrains": retrains(recs), "captures": captures(recs)}
     if log:
         out.update(from_log(log))
@@ -179,10 +180,11 @@ def report(run_dir: str, log: Optional[str] = None) -> Dict:
 RESULTS = "results"
 MARKS = tuple(range(EVAL_EVERY, 50_000 + 1, EVAL_EVERY))
 # The port's runs by reward channel: MBPO at 50k env steps (the flagship's
-# seeds 0-3; no dissipation run reached 50k) and the SAC baseline at 500k.
+# seeds 0-3; runscripts/mbpo_ks_dissipation.sh's run) and the SAC baseline
+# at 500k.
 PORT_MBPO = {"l2control": ("torch_ks50k", "torch_ks50k_seed1", "torch_ks50k_seed2",
                            "torch_ks50k_seed3"),
-             "dissipation": ()}
+             "dissipation": ("torch_ks50k_dissipation",)}
 PORT_SAC = {"l2control": ("torch_sac500k", "torch_sac500k_seed1"),
             "dissipation": ("torch_sac500k_dissipation", "torch_sac500k_dissipation_seed1")}
 # The JAX pair of each channel (results/RESULTS.md sections 2 and 8).
@@ -193,11 +195,31 @@ JAX_SAC = {"l2control": ("sac500k",), "dissipation": ("sac500k_dissipation",)}
 # --learning_starts 5000 --eval_freq 10000``), seeds 0 and 1, to 57k steps.
 JAX_CPU_SAC = {"l2control": ("jax_cpu_sac57k_seed0", "jax_cpu_sac57k_seed1"),
                "dissipation": ()}
-# The port's runs of the other two configurations, their JAX runs, and the
-# limit of "well outside" for a best at 50k: bf16_3x under the flagship
-# band's low end less its width; dissipation under JAX's -207.2 less 11%.
-PAIRS = {"torch_ks10k_bf16": ("ks50k_bf16", -181.0),
-         "torch_ks10k_dissipation": ("ks50k_dissipation", -230.0)}
+
+
+class Pair(NamedTuple):
+    """A port run's JAX run, the limit of "well outside" for its best at
+    full length, the env steps of that length and the spacing of its
+    marks."""
+    jax: str
+    limit: float
+    steps: int = 50_000
+    every: int = EVAL_EVERY
+
+
+# The port's runs of the other configurations, their JAX runs, and the
+# limit of "well outside" for a best at full length, each fixed before the
+# run's output was read: bf16_3x under the flagship band's low end less its
+# width; the others under their JAX run's best less 11% (dissipation
+# -207.24, latent_r4 -359.37, Burgers' worst JAX best, burgers20k_r3's
+# -0.2020; results/burgers20k, the best, has no metrics stream).  Burgers'
+# runscript stops at 20,000 env steps and evaluates every 500: its marks
+# fall every 5,000.
+PAIRS = {"torch_ks10k_bf16": Pair("ks50k_bf16", -181.0),
+         "torch_ks10k_dissipation": Pair("ks50k_dissipation", -230.0),
+         "torch_ks50k_dissipation": Pair("ks50k_dissipation", -230.0),
+         "torch_ks50k_latent_r4": Pair("ks50k_latent_r4", -398.9),
+         "torch_burgers20k": Pair("burgers20k_r3", -0.2242, 20_000, 5_000)}
 # results/ks50k* runs of another configuration than runscripts/mbpo_ks.sh's.
 JAX_OTHER_CONFIG = {
     "ks50k_bf16": "runscripts/mbpo_ks_bf16.sh: K2 at bf16_3x",
@@ -207,7 +229,9 @@ JAX_OTHER_CONFIG = {
     "ks50k_latent_r4": "another surrogate family (runscripts/mbpo_ks_latent_r4.sh)",
 }
 P_CONFIRMED, P_CLEARED = 0.05, 0.2
-FULL_RUN_STEPS = 49_990  # env steps sampled at a 50k run's last record
+# Env steps sampled at a full run's last record: its length less the last
+# iteration's steps (10 envs).
+LAST_ITERATION_STEPS = 10
 
 
 def first_segment(recs: List[Dict]) -> List[Dict]:
@@ -283,9 +307,9 @@ def jax_flagship_runs(results: str = RESULTS) -> Tuple[Dict[str, List[Dict]], Di
     return taken, left_out
 
 
-def _run(recs: List[Dict]) -> Dict:
+def _run(recs: List[Dict], marks: Sequence[int] = MARKS, every: int = EVAL_EVERY) -> Dict:
     evals = _evals(recs)
-    return {"eval_at": {m: v for m, v in eval_at(recs).items() if m in MARKS},
+    return {"eval_at": {m: v for m, v in eval_at(recs, every).items() if m in marks},
             "best": max(v for _, v in evals), "first": evals[0][1], "last": evals[-1][1]}
 
 
@@ -314,15 +338,17 @@ def _side(results: str, mbpo: Sequence[str], sac: Sequence[str],
                     for name in sac}}
 
 
-def _pair(results: str, port: str, jax: str, limit: float) -> Dict:
-    """A port run beside its JAX run; whether its best lies under the limit
-    is asked of a run that reached 50k env steps only."""
+def _pair(results: str, port: str, pair: Pair) -> Dict:
+    """A port run beside its JAX run at the pair's marks; whether its best
+    lies under the limit is asked of a run that reached its full length
+    only."""
+    marks = tuple(range(pair.every, pair.steps + 1, pair.every))
     recs = first_segment(load(os.path.join(results, port)))
-    mine = {**_run(recs), "env_steps": recs[-1]["num_steps_sampled"]}
-    reached = mine["env_steps"] >= FULL_RUN_STEPS
-    return {"port": mine, "jax": {"run": jax, **_run(first_segment(
-        load(os.path.join(results, jax))))}, "limit": limit,
-        "outside": (mine["best"] < limit) if reached else None}
+    mine = {**_run(recs, marks, pair.every), "env_steps": recs[-1]["num_steps_sampled"]}
+    reached = mine["env_steps"] >= pair.steps - LAST_ITERATION_STEPS
+    return {"port": mine, "jax": {"run": pair.jax, **_run(first_segment(
+        load(os.path.join(results, pair.jax))), marks, pair.every)}, "limit": pair.limit,
+        "full_length": pair.steps, "outside": (mine["best"] < pair.limit) if reached else None}
 
 
 def compare(results: str = RESULTS) -> Dict:
@@ -334,8 +360,8 @@ def compare(results: str = RESULTS) -> Dict:
         out["channels"][ch] = {"port": _side(results, PORT_MBPO[ch], PORT_SAC[ch], fallback),
                                "jax": jax,
                                "jax_cpu": _side(results, (), JAX_CPU_SAC[ch], fallback)}
-    out["pairs"] = {port: _pair(results, port, jax, limit)
-                    for port, (jax, limit) in PAIRS.items()}
+    out["pairs"] = {port: _pair(results, port, pair) for port, pair in PAIRS.items()
+                    if _has_stream(os.path.join(results, port))}
     jax_runs, left_out = jax_flagship_runs(results)
     port_means = {name: mark_mean(first_segment(load(os.path.join(results, name))))
                   for name in PORT_MBPO["l2control"]}
@@ -355,8 +381,10 @@ def main(argv=None) -> int:
     p.add_argument("--run_dir", default=None,
                    help="the run to report; without it, the study's comparison")
     p.add_argument("--log", default=None, help="the run's standard output")
+    p.add_argument("--every", type=int, default=EVAL_EVERY,
+                   help="the spacing of a run's marks in env steps")
     args = p.parse_args(argv)
-    out = compare() if args.run_dir is None else report(args.run_dir, args.log)
+    out = compare() if args.run_dir is None else report(args.run_dir, args.log, args.every)
     print(json.dumps(out, indent=1))
     return 0
 

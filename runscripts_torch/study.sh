@@ -8,8 +8,16 @@
 #   seed2, seed3   --solver pallas --seed 2 / 3 (K1);
 #   bf16           runscripts/mbpo_ks_bf16.sh's additions (K2 at bf16_3x);
 #   dissipation    runscripts/mbpo_ks_dissipation.sh's addition, objective ""
-#                  (K1).
-# RUN... names the runs (all four by default).  Then the SAC baseline to
+#                  (K1);
+#   latent         runscripts/mbpo_ks_latent_r4.sh's overrides (the
+#                  KSLatentConvolutionalLSTM family, 750 steps and patience
+#                  10 a retrain) and --solver pallas (K1);
+#   burgers        runscripts/mbpo_burgers.sh: BurgersEnv-v0 at
+#                  --reward_scale 500, its other arguments mbpo_ks.sh's
+#                  (no kernel); its runscript stops at 20,000 env steps.
+# RUN... names the runs (the first four by default); any of them runs alone
+# at any MBPO_STEPS, as `study.sh 50000 0 OUT dissipation` does.  Then the
+# SAC baseline to
 # SAC_STEPS env steps on both reward channels, seeds 0 and 1, four processes
 # at once, each at its JAX stream's cadence: l2control as results/sac500k
 # (warmup 5,000, an evaluation every 10,000 steps), dissipation as
@@ -96,6 +104,10 @@ declare -A EXTRA=(
     [seed3]="--solver pallas --seed 3"
     [bf16]="--solver pallas_packed --env_config {\"pallas_precision\":\"bf16_3x\"}"
     [dissipation]="--solver pallas --env_config {\"objective\":\"\"}"
+    [latent]="--solver pallas --factory KSLatentConvolutionalLSTM
+        --trainer {\"initial\":{\"min_steps\":250,\"max_steps\":2000},\"iterations\":{\"min_steps\":50,\"max_steps\":750}}
+        --training {\"tau\":5,\"initial\":{\"tbtt\":10,\"patience\":10,\"batch_size\":64},\"iterations\":{\"tbtt\":10,\"patience\":10,\"batch_size\":64}}"
+    [burgers]="--env_id BurgersEnv-v0 --reward_scale 500"
 )
 if [ "$MBPO_STEPS" -gt 0 ]; then
     for run in $RUNS; do

@@ -1,8 +1,9 @@
 """The JAX package's side of the twin (``tests/test_torch_twin.py``): its
-``learn()`` on the tape of ``tests/twin_tape.py``, in float64, in a process
-of its own so that it overlaps the port's side:
+``learn()`` of the twin NAME of ``tests/twin_tape.py`` (``flagship``,
+``latent`` or ``burgers``; ``flagship`` by default) on its tape, in float64,
+in a process of its own so that it overlaps the port's side:
 
-    XLA_FLAGS=--xla_backend_optimization_level=0 python tests/jax_twin.py OUT
+    XLA_FLAGS=--xla_backend_optimization_level=0 python tests/jax_twin.py OUT [NAME]
 
 Nothing of the JAX package is edited; this script patches it in memory:
 
@@ -56,7 +57,7 @@ from pdecontrol_tpu.sac import sac as JS  # noqa: E402
 from pdecontrol_tpu.train import trainer as JT  # noqa: E402
 from tests import twin_tape as T  # noqa: E402
 
-TAPE = T.Tape()
+TAPE = T.Tape()  # main() sets the members of its twin
 TAPE.barrier = jax.effects_barrier
 MEMBERS = [False]  # whether a vmap over the members is tracing
 
@@ -198,18 +199,20 @@ def _adam(opt_state):
     return adam
 
 
-def main(out):
+def main(out, name="flagship"):
+    config = T.TWINS[name].config
+    TAPE.members = config["num_dynamics_models"]
     for callee in ("uniform", "normal", "randint", "categorical"):
         setattr(jax.random, callee, _shim(callee))
     JT.jax = _MembersVmap()
     JC.init_ensemble = _init_ensemble
     JS.SAC.init = _sac_init
-    env_cls, _ = JC.ENVS[T.CONFIG["env_id"]]
-    JC.ENVS[T.CONFIG["env_id"]] = (env_cls, lambda env, key, size: jnp.asarray(
-        T.reset_pool(TAPE, env.n, size), env.dtype))
+    env_cls, _ = JC.ENVS[config["env_id"]]
+    JC.ENVS[config["env_id"]] = (env_cls, lambda env, key, size: jnp.asarray(
+        T.reset_pool(TAPE, env, size), env.dtype))
 
-    cfg = MBPOConfig(**{**T.CONFIG, "env_config": {**T.CONFIG["env_config"],
-                                                   "dtype": jnp.float64},
+    cfg = MBPOConfig(**{**config, "env_config": {**config["env_config"],
+                                                 "dtype": jnp.float64},
                         "run_dir": os.path.join(out, "run"),
                         "fuse_iteration": False, "fuse_fit": False})
     ctl = JC.PDEModelBasedController(cfg)
@@ -264,4 +267,4 @@ def main(out):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])

@@ -292,6 +292,8 @@ def test_compare_reads_the_study(tmp_path, monkeypatch):
                                                "dissipation": ("torch_sac500k_dissipation",)})
     monkeypatch.setattr(long_run, "JAX_CPU_SAC", {"l2control": ("jax_cpu_sac",),
                                                   "dissipation": ()})
+    # A channel without a port MBPO run holds its SAC streams to JAX's best.
+    monkeypatch.setattr(long_run, "PORT_MBPO", {**long_run.PORT_MBPO, "dissipation": ()})
     out = long_run.compare(str(tmp_path))
     l2 = out["channels"]["l2control"]
     assert l2["port"]["target"] == pytest.approx(np.median([-171.0, -177.0, -177.0, -177.0]))
@@ -319,3 +321,29 @@ def test_compare_reads_the_study(tmp_path, monkeypatch):
     assert "ks50k_dissipation" in lag["jax_left_out"]
     assert lag["port"]["torch_ks50k_seed2"] == pytest.approx(-262.0)
     assert (lag["p"], lag["splits"], lag["verdict"]) == (pytest.approx(1 / 15), 15, "open")
+
+
+@pytest.mark.parametrize("inside", [True, False], ids=["inside", "outside"])
+@pytest.mark.parametrize("port", ["torch_ks50k_dissipation", "torch_ks50k_latent_r4",
+                                  "torch_burgers20k"])
+def test_a_full_length_pair_is_held_to_its_limit(tmp_path, port, inside):
+    """A run of the dissipation, latent or Burgers runscript to its full
+    length (Burgers' 20,000 env steps, evaluated every 500) beside its JAX
+    run at its marks (every 5,000 for Burgers, 10,000 for the others): its
+    best inside its limit holds the path, outside it does not; the same run
+    cut short is not asked."""
+    pair = long_run.PAIRS[port]
+    marks = list(range(pair.every, pair.steps + 1, pair.every))
+    best = pair.limit * (0.99 if inside else 1.01)  # the limits are negative
+    evals = [(m - 500, best * 2) for m in marks] + [(pair.steps - 10, best)]
+    _write_stream(tmp_path / port, sorted(evals))
+    _write_stream(tmp_path / pair.jax, [(m - 500, pair.limit * 0.9) for m in marks])
+    out = long_run._pair(str(tmp_path), port, pair)
+    assert out["outside"] is (not inside)
+    assert (out["limit"], out["full_length"], out["port"]["best"]) == (pair.limit, pair.steps, best)
+    assert list(out["port"]["eval_at"]) == list(out["jax"]["eval_at"]) == marks
+    assert out["port"]["env_steps"] == pair.steps - 10
+    cut = tmp_path / "cut"
+    _write_stream(cut / port, sorted(evals)[:2])
+    _write_stream(cut / pair.jax, [(m - 500, pair.limit * 0.9) for m in marks])
+    assert long_run._pair(str(cut), port, pair)["outside"] is None

@@ -15,6 +15,11 @@ excepted) must agree after every iteration, and at the end the SAC
 networks and their Adam states, every member and its Adam state, the
 elites, both replays, the transforms' running statistics and the envs, all
 to 1e-9 relative and 1e-12 absolute.
+
+The checks are helpers that take the twin, so that
+``test_torch_twin_latent.py`` and ``test_torch_twin_burgers.py`` hold the
+other configurations of ``twin_tape.TWINS`` to the same checks, each in a
+file of its own (``twin_fixtures``).
 """
 
 import json
@@ -78,49 +83,62 @@ def _wait_for(path, proc):
         time.sleep(0.05)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def jax_side(tmp_path_factory):
-    """The JAX package's run, started before the module's first test so
-    that it overlaps the rest; yields its directory and process."""
-    out = tmp_path_factory.mktemp("twin")
-    jax_dir = out / "jax"
-    jax_dir.mkdir()
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(HERE), JAX_PLATFORMS="cpu",
-               OMP_NUM_THREADS="1",
-               XLA_FLAGS="--xla_backend_optimization_level=0 "
-                         "--xla_llvm_disable_expensive_passes=true")
-    proc = subprocess.Popen([sys.executable, os.path.join(HERE, "jax_twin.py"), str(jax_dir)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-    yield out, jax_dir, proc
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+# XLA's lowest optimisation: the JAX side compiles more than it runs.
+XLA_FLAGS = "--xla_backend_optimization_level=0 --xla_llvm_disable_expensive_passes=true"
 
 
-@pytest.fixture(scope="module")
-def twin(jax_side):
-    """Both runs: the JAX package's in its own process, the port's here."""
-    out, jax_dir, proc = jax_side
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        _wait_for(jax_dir / "weights.npz", proc)
-        weights = np.load(jax_dir / "weights.npz")
-        members = [convert.state_dict(_nested(weights, f"member{i}"))
-                   for i in range(T.CONFIG["num_dynamics_models"])]
-        sac = (convert.state_dict(_nested(weights, "policy")),
-               convert.state_dict(_nested(weights, "critic")))
-        port = T.run_port(str(out / "port"), "cpu", torch.float64, members=members, sac=sac)
-        _, stderr = proc.communicate(timeout=JAX_TIMEOUT)
-        assert proc.returncode == 0, stderr[-4000:]
-    finally:
-        torch.set_num_threads(n)
-    with open(jax_dir / "tape.json") as f:
-        jax_tape = json.load(f)
-    return types.SimpleNamespace(
-        ctl=port["ctl"], tape=port["tape"], fits=port["fits"], records=port["records"],
-        jax_records=_records(jax_dir / "run"), jax=np.load(jax_dir / "state.npz"),
-        jax_tape=jax_tape)
+def twin_fixtures(name, xla_flags=XLA_FLAGS):
+    """The module-scoped fixtures of the twin ``name``: ``jax_side``, the
+    JAX package's run under ``xla_flags``, started before the module's
+    first test so that it overlaps the rest (it yields its directory and
+    process), and ``twin``, both runs (the port's here)."""
+
+    @pytest.fixture(scope="module", autouse=True)
+    def jax_side(tmp_path_factory):
+        out = tmp_path_factory.mktemp("twin")
+        jax_dir = out / "jax"
+        jax_dir.mkdir()
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(HERE), JAX_PLATFORMS="cpu",
+                   OMP_NUM_THREADS="1", XLA_FLAGS=xla_flags)
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "jax_twin.py"), str(jax_dir), name],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        yield out, jax_dir, proc
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+    @pytest.fixture(scope="module")
+    def twin(jax_side):
+        out, jax_dir, proc = jax_side
+        spec = T.TWINS[name]
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            _wait_for(jax_dir / "weights.npz", proc)
+            weights = np.load(jax_dir / "weights.npz")
+            members = [convert.state_dict(_nested(weights, f"member{i}"))
+                       for i in range(spec.config["num_dynamics_models"])]
+            sac = (convert.state_dict(_nested(weights, "policy")),
+                   convert.state_dict(_nested(weights, "critic")))
+            port = T.run_port(name, str(out / "port"), "cpu", torch.float64,
+                              members=members, sac=sac)
+            _, stderr = proc.communicate(timeout=JAX_TIMEOUT)
+            assert proc.returncode == 0, stderr[-4000:]
+        finally:
+            torch.set_num_threads(n)
+        with open(jax_dir / "tape.json") as f:
+            jax_tape = json.load(f)
+        return types.SimpleNamespace(
+            name=name, spec=spec, ctl=port["ctl"], tape=port["tape"], fits=port["fits"],
+            rollouts=port["rollouts"], records=port["records"],
+            jax_records=_records(jax_dir / "run"), jax=np.load(jax_dir / "state.npz"),
+            jax_tape=jax_tape)
+
+    return jax_side, twin
+
+
+jax_side, twin = twin_fixtures("flagship")
 
 
 def _innermost(qualname):
@@ -138,8 +156,8 @@ def test_site_table_lists_every_draw_call():
     calls = {T.JAX_PACKAGE: ("jax.random", {"uniform", "normal", "randint", "categorical"}),
              T.PORT_PACKAGE: ("torch", {"rand", "randn", "randint", "multinomial"})}
     modules = ("mbrl/controller.py", "mbrl/agents.py", "mbrl/world.py", "data/replay.py",
-               "envs/kuramoto.py", "models/surrogate.py", "sac/nets.py", "sac/sac.py",
-               "train/trainer.py", "parallel/sharded.py")
+               "envs/kuramoto.py", "envs/burgers.py", "models/surrogate.py", "sac/nets.py",
+               "sac/sac.py", "train/trainer.py", "parallel/sharded.py")
     for pkg, (base, names) in calls.items():
         listed = {(f, _innermost(q), c) for site in T.read_sites()
                   for f, _, q, c in (site.jax if pkg == T.JAX_PACKAGE else site.port)}
@@ -208,27 +226,39 @@ def _close(port, jax_value, what):
                                rtol=RTOL, atol=ATOL, err_msg=what)
 
 
-def test_the_run_reaches_the_flagship_paths(twin):
-    ctl, records = twin.ctl, twin.records
+def check_paths(twin):
+    """The run reaches what makes the twin worth having: its iterations at
+    their horizons (the horizon climbs), two retrains, in one of which
+    early stopping fires for members at different epochs, a world replay
+    that wraps, the evaluations, and the counters of the JAX package's
+    run."""
+    ctl, records, spec = twin.ctl, twin.records, twin.spec
     iters = [r for r in records if "iteration" in r]
-    assert [r["iteration"] for r in iters] == list(range(T.ITERATIONS))
-    assert [r["horizon"] for r in iters] == T.HORIZONS  # the horizon climbs
+    assert [r["iteration"] for r in iters] == list(range(spec.iterations))
+    assert [r["horizon"] for r in iters] == list(spec.horizons)
     retrains = [r for r in records if "num_ensemble_updates" in r]
-    assert [r["iteration"] for r in retrains] == [0, 5]
-    # In the first retrain early stopping fires, for members at different
-    # epochs, before max_steps stops the last.
-    first = sorted(twin.fits[0])
-    assert first[0] < first[1] < first[2] == ctl.train_cfgs["initial"].max_steps, twin.fits
+    assert [r["iteration"] for r in retrains] == list(spec.retrains)
+    max_steps = [ctl.train_cfgs["initial" if i == 0 else "iterations"].max_steps
+                 for i in range(len(twin.fits))]
+    assert any(len(set(f)) == len(f) and min(f) < top
+               for f, top in zip(twin.fits, max_steps)), twin.fits
     assert int(ctl.world_replay.next_row) > ctl.world_replay.num_rows  # wrapped
-    assert [r["iteration"] for r in records if "eval_return_mean" in r] == [0, 4, 8]
+    assert [r["iteration"] for r in records if "eval_return_mean" in r] == list(spec.evals)
     assert all(0 < r["world_buffer_samples"] for r in iters)
     assert ctl.iteration == twin.jax_tape["iteration"]
     assert ctl.num_pol_updates == twin.jax_tape["num_pol_updates"]
     assert ctl.num_ensemble_updates == twin.jax_tape["num_ensemble_updates"]
 
 
-@pytest.mark.parametrize("index", range(T.ITERATIONS))
-def test_records_agree_iteration_by_iteration(twin, index):
+def test_the_run_reaches_the_flagship_paths(twin):
+    check_paths(twin)
+    # In the first retrain early stopping fires, for members at different
+    # epochs, before max_steps stops the last.
+    first = sorted(twin.fits[0])
+    assert first[0] < first[1] < first[2] == twin.ctl.train_cfgs["initial"].max_steps, twin.fits
+
+
+def check_record(twin, index):
     """The record of iteration ``index`` (the first carries the warmup's
     evaluation and the first retrain): the same fields, the same values."""
     port, jax_rec = (T.shared_fields(r[index]) for r in (twin.records, twin.jax_records))
@@ -240,6 +270,11 @@ def test_records_agree_iteration_by_iteration(twin, index):
         if not np.allclose(a, b, rtol=RTOL, atol=ATOL):
             parted[k] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), ATOL)))
     assert not parted, f"iteration {index}: the fields that part, relative gaps: {parted}"
+
+
+@pytest.mark.parametrize("index", range(T.TWINS["flagship"].iterations))
+def test_records_agree_iteration_by_iteration(twin, index):
+    check_record(twin, index)
 
 
 def _sac_checks(twin):
@@ -264,7 +299,7 @@ def _sac_checks(twin):
 
 def _member_checks(twin):
     ctl, j = twin.ctl, twin.jax
-    modules = [factories.make(T.CONFIG["factory"], delta=ctl.env.delta,
+    modules = [factories.make(twin.spec.config["factory"], delta=ctl.env.delta,
                               **{**ctl.env.scenario, **ctl.config.model}).double()
                for _ in range(ctl.config.num_dynamics_models)]
     want = convert.stacked_trainer_state(
@@ -316,7 +351,7 @@ def test_final_state_agrees(twin, part):
     FINAL[part](twin)
 
 
-def test_both_drew_from_the_same_keys(twin):
+def check_same_keys(twin):
     """The port drew every key the JAX package drew, but the world step's
     reset at a round's last step, which JAX discards and the port skips."""
     port = {tuple(k) for k in twin.tape.keys}
@@ -325,10 +360,14 @@ def test_both_drew_from_the_same_keys(twin):
     assert port <= jax_keys
     extra = jax_keys - port
     assert extra and all(k[0] == "imagine" and k[3] == "reset" and k[5] == h - 1
-                         for k in extra for h in [T.HORIZONS[k[1]]]), sorted(extra)[:5]
+                         for k in extra for h in [twin.spec.horizons[k[1]]]), sorted(extra)[:5]
 
 
-def test_every_draw_site_fired_has_a_tape_key(twin):
+def test_both_drew_from_the_same_keys(twin):
+    check_same_keys(twin)
+
+
+def check_sites_fired(twin):
     """The sites that drew in each package are the table's, and the
     packages drew at the same roles."""
     fired = {pkg: {tuple(s[1:]) for s in sites}
@@ -339,3 +378,8 @@ def test_every_draw_site_fired_has_a_tape_key(twin):
     table = {s.role for s in T.read_sites()}
     assert roles[T.PORT_PACKAGE] <= table
     assert roles[T.PORT_PACKAGE] >= table - {"pool", "weights", "train_vis.index"}
+    return fired
+
+
+def test_every_draw_site_fired_has_a_tape_key(twin):
+    check_sites_fired(twin)

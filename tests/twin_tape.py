@@ -9,7 +9,9 @@ step, the imagined round and step, the SAC update, the member).  So both
 packages get the same draws although they batch them differently (the
 port's lock-step fit draws ``M * B`` windows at once, the JAX package one
 batch per member) and although the port skips a draw whose result the JAX
-package discards (the world step's reset at a round's last step).
+package discards (the world step's reset at a round's last step).  Three
+configurations run on it (``TWINS``): the flagship's, the latent family's
+and Burgers', each at its runscript's structure and a tiny size.
 
 Where the packages reach one distribution by different algorithms the tape
 supplies the outcome: replay rows and elite members are the inverse of the
@@ -44,6 +46,18 @@ JAX_PACKAGE, PORT_PACKAGE = "pdecontrol_tpu", "pdecontrol_tpu_torch"
 GRID = 4096
 SEED = 0
 
+@dataclasses.dataclass(frozen=True)
+class Twin:
+    """One configuration of the twin: ``learn()``'s config, its iterations,
+    the horizon of each, the iterations that retrain and those that
+    evaluate."""
+    config: Dict
+    iterations: int
+    horizons: Tuple[int, ...]
+    retrains: Tuple[int, ...]
+    evals: Tuple[int, ...]
+
+
 # The flagship's structure (runscripts/mbpo_ks.sh) at the size of
 # tests/test_torch_long_run.py: 8-step KS episodes on 32 points (K1's
 # smallest grid on the card), 2 envs, a
@@ -52,11 +66,10 @@ SEED = 0
 # max_steps), the horizon climbing 2 -> 3, a world
 # replay of 8 rows that wraps in iteration 2, SAC updates on mixed batches,
 # evaluations at iterations 0, 4 and 8, and 3 members of which 2 are elites.
-ITERATIONS = 10
-CONFIG = dict(
+FLAGSHIP = dict(
     env_id="KuramotoSivashinskyEnv-v0",
     env_config={"n": 32, "cfg_steps": 5, "t_max": 0.04},
-    num_envs=2, total_timesteps=8 + 2 * ITERATIONS, learning_starts=8, capacity=512,
+    num_envs=2, total_timesteps=8 + 2 * 10, learning_starts=8, capacity=512,
     pool_size=8, surrogate_train_freq=10, policy_train_steps_per_sample=1,
     model_rollouts_per_sample=2, model_rollouts_batch_size=4,
     model_buffer_store_iterations=2, model_buffer_max_capacity=64,
@@ -72,7 +85,40 @@ CONFIG = dict(
              "iterations": {"min_steps": 1, "max_steps": 12}},
     curriculum={"scheduler": "ConstantLengthScheduler", "length": 2},
 )
-HORIZONS = [2, 2, 2, 2, 2, 2, 3, 3, 3, 3]
+_STRUCTURE = dict(iterations=10, horizons=(2,) * 6 + (3,) * 4, retrains=(0, 5),
+                  evals=(0, 4, 8))
+TWINS = {
+    "flagship": Twin(FLAGSHIP, **_STRUCTURE),
+    # runscripts/mbpo_ks_latent_r4.sh: the flagship's arguments with the
+    # KSLatentConvolutionalLSTM family (LATENT mode: encode, step in the
+    # latent, decode; a world step re-encodes the previous prediction) and
+    # its trainer overrides scaled as the flagship's are: max_steps of a
+    # later retrain three times the flagship's, patience as the first
+    # retrain's.  Its windows hold a TBPTT chunk boundary inside the loss,
+    # as mbpo_ks.sh's 20-step windows do at step 10, so that the fit
+    # self-forces on the re-encoded, detached prediction: a 5-step warmup
+    # for 5-step windows (tau 2, the curriculum's scheduler at 3), chunks of
+    # 3 steps.
+    "latent": Twin({**FLAGSHIP, "factory": "KSLatentConvolutionalLSTM",
+                    "learning_starts": 10, "total_timesteps": 10 + 2 * 10,
+                    "curriculum": {"scheduler": "LinearScheduler", "steptype": "iteration",
+                                   "start": 0, "stop": 10, "vmin": 3, "vmax": 3},
+                    "training": {"tau": 2,
+                                 "initial": {"tbtt": 3, "patience": 1, "batch_size": 4},
+                                 "iterations": {"tbtt": 3, "patience": 1, "batch_size": 4}},
+                    "trainer": {"initial": {"min_steps": 2, "max_steps": 12},
+                                "iterations": {"min_steps": 1, "max_steps": 36}}},
+                   **_STRUCTURE),
+    # runscripts/mbpo_burgers.sh: the flagship's arguments on BurgersEnv-v0
+    # (16 points, as tests/test_torch_slice_families.py), SAC's rewards
+    # scaled by 500, and its curriculum's scheduler at the twin's length.
+    "burgers": Twin({**FLAGSHIP, "env_id": "BurgersEnv-v0",
+                     "env_config": {"n": 16, "cfg_steps": 5, "t_max": 0.04},
+                     "reward_scale": 500.0,
+                     "curriculum": {"scheduler": "LinearScheduler", "steptype": "iteration",
+                                    "start": 0, "stop": 10, "vmin": 2, "vmax": 2}},
+                    **_STRUCTURE),
+}
 # Fields of a record that read the host's clock or its garbage collector.
 WALL_CLOCK = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2")
 
@@ -147,7 +193,7 @@ class Tape:
     """The draws of one run, keyed by meaning; ``phase`` sets what the key
     holds besides the role."""
 
-    def __init__(self, seed: int = SEED, members: int = CONFIG["num_dynamics_models"]):
+    def __init__(self, seed: int = SEED, members: int = FLAGSHIP["num_dynamics_models"]):
         self.seed = seed
         self.members = members
         self.phase_name, self.iteration, self.horizon = "init", "init", None
@@ -247,10 +293,21 @@ class Tape:
         return np.searchsorted(cdf, target, side="right")
 
 
-def reset_pool(tape: Tape, n: int, size: int) -> np.ndarray:
-    """The reset pool, an outcome of the tape: smooth periodic fields of
-    three Fourier modes (the KS attractor's scale), float64 [size, n]."""
+def reset_pool(tape: Tape, env, size: int) -> np.ndarray:
+    """The reset pool of either package's ``env``, an outcome of the tape,
+    float64 [size, n].  KS: smooth periodic fields of three Fourier modes
+    (the attractor's scale).  Burgers: ``Burgers.sample_ic``'s fields, the
+    sum of the ``ic_modes`` lowest sines at amplitudes in [-0.25, 0.25)
+    and phases in [0, 2 pi), both from the tape."""
     rng = tape.rng(("pool",))
+    n = env.n
+    if hasattr(env, "ic_modes"):  # Burgers
+        amps = rng.uniform(-0.25, 0.25, (size, env.ic_modes))
+        phases = rng.uniform(0.0, 2 * np.pi, (size, env.ic_modes))
+        x = np.linspace(0.0, env.length - env.length / n, n)
+        k = np.arange(1, env.ic_modes + 1)
+        waves = np.sin(2 * np.pi * k[:, None] * x[None, :] / env.length + phases[..., None])
+        return (amps[..., None] * waves).sum(-2)
     x = 2 * np.pi * np.arange(n) / n
     amp = rng.normal(0.0, 0.6, (size, 3, 2))
     k = np.arange(1, 4)[None, :, None]
@@ -258,10 +315,10 @@ def reset_pool(tape: Tape, n: int, size: int) -> np.ndarray:
 
 
 # ----------------------------------------------------------- the port's side
-def install_port(monkeypatch, tape: Tape, pool: np.ndarray,
-                 members=None, sac=None, dtype=None) -> None:
+def install_port(monkeypatch, tape: Tape, env_id: str, members=None, sac=None,
+                 dtype=None) -> None:
     """Route the port's draws through ``tape`` (``monkeypatch`` undoes it):
-    the four torch draw functions, the reset pool, and, if given, the
+    the four torch draw functions, ``env_id``'s reset pool, and, if given, the
     members' and the SAC networks' starting weights (state dicts, loaded in
     ``dtype``) in place of the port's own initialisation."""
     import torch
@@ -335,10 +392,10 @@ def install_port(monkeypatch, tape: Tape, pool: np.ndarray,
                      ("multinomial", multinomial)):
         monkeypatch.setattr(torch, name, fn)
 
-    env_cls, _ = C.ENVS[CONFIG["env_id"]]
-    monkeypatch.setitem(C.ENVS, CONFIG["env_id"], (
+    env_cls, _ = C.ENVS[env_id]
+    monkeypatch.setitem(C.ENVS, env_id, (
         env_cls, lambda env, generator, size: torch.as_tensor(
-            pool[:size], dtype=env.dtype, device=env.device)))
+            reset_pool(tape, env, size), dtype=env.dtype, device=env.device)))
 
     if members is not None:
         real_init = C.init_ensemble
@@ -409,34 +466,52 @@ JAX_PHASES = {"collect": "collect", "imagine": "imagine", "update_policy": "poli
               "update_surrogates": "fit"}
 
 
-def run_port(run_dir: str, device, dtype, solver: str = "xla", graphs: bool = True,
-             members=None, sac=None, reverse_sac_rows: bool = False,
+def run_port(name: str, run_dir: str, device, dtype, solver: str = "xla",
+             graphs: bool = True, members=None, sac=None, reverse_sac_rows: bool = False,
              perturb: float = 0.0) -> Dict:
-    """The port's ``learn()`` of ``CONFIG`` on a fresh tape, in ``dtype`` on
-    ``device`` through ``solver``, from the port's own initialisation (seeded
-    on the host, so alike on every device) or from ``members`` / ``sac``
-    state dicts.  Two perturbations for a floor of float32 rounding:
+    """The port's ``learn()`` of the twin ``name`` (a key of ``TWINS``) on a
+    fresh tape, in ``dtype`` on ``device`` through ``solver`` (KS; Burgers
+    has one solver), from the port's own initialisation (seeded on the
+    host, so alike on every device) or from ``members`` / ``sac`` state
+    dicts.  Two perturbations for a floor of float32 rounding:
     ``reverse_sac_rows`` feeds each SAC update its batch's rows (and their
     noises) in reverse order, the same arithmetic in another summation
     order; ``perturb`` adds +-``perturb`` in turn to the points of every
     control period's field and to its rewards (a kernel's gap to the plain
     solver).  Returns the controller, the tape and what the records do not
     hold: the warmup's rewards, the first evaluation, each retrain's steps
-    per member and a digest of the starting weights."""
+    per member, a digest of the starting weights, and the surrogates'
+    rollouts by phase, mode and whether they re-encode (``rollouts``)."""
     import pytest
     import torch
 
+    from pdecontrol_tpu_torch.envs import burgers
     from pdecontrol_tpu_torch.mbrl.config import MBPOConfig
     from pdecontrol_tpu_torch.mbrl.controller import PDEModelBasedController
+    from pdecontrol_tpu_torch.models.surrogate import PDESurrogate
 
-    tape = Tape()
-    cfg = MBPOConfig(**{**CONFIG, "env_config": {**CONFIG["env_config"], "dtype": dtype,
-                                                 "solver": solver},
-                        "run_dir": run_dir})
-    out: Dict = {"warmup_rewards": None, "evals": [], "fits": []}
+    config = TWINS[name].config
+    tape = Tape(members=config["num_dynamics_models"])
+    env_config = {**config["env_config"], "dtype": dtype}
+    if config["env_id"] == "KuramotoSivashinskyEnv-v0":  # Burgers has one solver
+        env_config["solver"] = solver
+    cfg = MBPOConfig(**{**config, "env_config": env_config, "run_dir": run_dir})
+    out: Dict = {"warmup_rewards": None, "evals": [], "fits": [], "rollouts": {}}
     with pytest.MonkeyPatch.context() as patches:
-        install_port(patches, tape, reset_pool(tape, cfg.env_config["n"], cfg.pool_size),
-                     members, sac, dtype)
+        install_port(patches, tape, config["env_id"], members, sac, dtype)
+        rollout = PDESurrogate.rollout
+
+        def counted_rollout(self, states, actions, *args, **kw):
+            reencode = kw.get("reencode", args[2] if len(args) > 2 else None)
+            # A rollout of one step from one state is a world step: it
+            # re-encodes the previous prediction.
+            again = (reencode is not None and bool(np.any(reencode))) or (
+                states.shape[1] == 1 == actions.shape[1])
+            key = f"{tape.phase_name} {self.mode}" + (" reencode" if again else "")
+            out["rollouts"][key] = out["rollouts"].get(key, 0) + 1
+            return rollout(self, states, actions, *args, **kw)
+
+        patches.setattr(PDESurrogate, "rollout", counted_rollout)
         ctl = PDEModelBasedController(cfg, device=device, graphs=graphs)
         digest = hashlib.sha256()
         for t in [ctl.ensemble.params] + list(ctl.sac_state.policy.state_dict().values()) \
@@ -480,14 +555,19 @@ def run_port(run_dir: str, device, dtype, solver: str = "xla", graphs: bool = Tr
 
             ctl.sac.update = sac_update
         if perturb:
-            period = ctl.env._control_period
-
-            def perturbed(u, phi):
-                u, reward = period(u, phi)
+            def moved(u, reward):
                 sign = torch.ones_like(u)
                 sign[..., 1::2] = -1
                 return u + perturb * sign, reward + perturb
-            object.__setattr__(ctl.env, "_control_period", perturbed)
+
+            if config["env_id"] == "BurgersEnv-v0":
+                period = burgers.burgers_control_period
+                patches.setattr(burgers, "burgers_control_period",
+                                lambda *args: moved(*period(*args)))
+            else:
+                period = ctl.env._control_period
+                object.__setattr__(ctl.env, "_control_period",
+                                   lambda u, phi: moved(*period(u, phi)))
         try:
             ctl.learn()
         finally:
@@ -516,21 +596,23 @@ def record_gaps(records, reference) -> List[Dict[str, float]]:
 
 
 def main(argv: List[str]) -> int:
-    """``python tests/twin_tape.py OUT EPS``: the port's float32 runs of the
-    tape on the host's CPU (``cpu``, ``cpu_reordered``, ``cpu_perturbed``
-    by +-EPS), each written to ``OUT/<name>.json``; ``chip_smoke.py`` phase
-    21 runs it beside its runs on the card."""
+    """``python tests/twin_tape.py OUT EPS [NAME]``: the port's float32 runs
+    of the twin NAME (``flagship`` by default) on the host's CPU (``cpu``,
+    ``cpu_reordered``, ``cpu_perturbed`` by +-EPS), each written to
+    ``OUT/<name>.json``; ``chip_smoke.py`` phases 21 and 23 run it beside
+    their runs on the card."""
     import torch
 
     sys.path.insert(0, ROOT)
     import pdecontrol_tpu_torch  # noqa: F401
 
     out, eps = argv[0], float(argv[1])
+    twin = argv[2] if len(argv) > 2 else "flagship"
     torch.set_num_threads(1)
     runs = {"cpu": {}, "cpu_reordered": {"reverse_sac_rows": True},
             "cpu_perturbed": {"perturb": eps}}
     for name, kw in runs.items():
-        result = run_port(os.path.join(out, name), "cpu", torch.float32, **kw)
+        result = run_port(twin, os.path.join(out, name), "cpu", torch.float32, **kw)
         with open(os.path.join(out, name + ".json"), "w") as f:
             json.dump({k: v for k, v in result.items() if k not in ("ctl", "tape")}, f)
     return 0
