@@ -74,7 +74,9 @@ Twenty-three phases, each timed:
      ``save_checkpoint()`` of the full-size state is timed (the seconds
      until ``save()`` returns, until the file is on disk, and its size);
   9. trace: the main path cut to iterations 0 and 1 with ``--profile_dir``;
-     the trace file must exist, and its size, the wall time of the traced
+     the trace file and the spans file beside it must exist, the trace must
+     show the program's spans on its host rows and the stamp kernel on its
+     device rows, and its size, the wall time of the traced
      iteration (one replay of the graph, captured before the trace starts)
      and the share of it in which CUDA kernels ran are printed (and the same
      kernel time against phase 3's iteration 1, from its dispatch to its
@@ -264,7 +266,8 @@ RUN_DIR_MESH = os.path.join(HERE, "runs", "chip_smoke_mesh")
 RUN_DIR_MESH_ONE = os.path.join(HERE, "runs", "chip_smoke_mesh_1x1")
 RUN_DIR_LONG = os.path.join(HERE, "runs", "chip_smoke_long")
 RUN_DIR_DISSIPATION = os.path.join(HERE, "runs", "chip_smoke_dissipation")
-KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu")
+# K1, K2, and the loop's device stamps (``utils/profiling.py``).
+KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu", "device_stamp.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
 # dense): float32 outside the tensor cores, bf16 products with float32
@@ -1812,17 +1815,19 @@ def run_trace():
 
     ctl, counts = counted_run("learn() with --profile_dir", traced)
     require(counts, ("K1",), "the traced run")
-    trace = ctl.last_trace
-    if not trace or not os.path.exists(trace["path"]):
-        raise AssertionError("no trace was written")
-    if os.listdir(os.path.dirname(trace["path"])) != [os.path.basename(trace["path"])]:
-        raise AssertionError("--profile_dir holds more than the one trace")
-    size = os.path.getsize(trace["path"])
+    profile = os.path.join(RUN_DIR_TRACE, "profile")
+    files = sorted(os.listdir(profile)) if os.path.isdir(profile) else []
+    traces = [f for f in files if f.startswith("trace-") and f.endswith(".json")]
+    span_files = [f for f in files if f.startswith("spans-") and f.endswith(".jsonl")]
+    if len(traces) != 1 or len(span_files) != 1 or len(files) != 2:
+        raise AssertionError(f"--profile_dir must hold one trace and one spans file: {files}")
+    path = os.path.join(profile, traces[0])
+    size = os.path.getsize(path)
     t0 = time.perf_counter()
-    with open(trace["path"]) as f:
+    with open(path) as f:
         events = json.load(f)["traceEvents"]
     # The share of the traced iteration in which a kernel ran: the union of
-    # the kernels' intervals (microseconds) over the region's wall time.
+    # the kernels' intervals (microseconds) over the traced region.
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                    if e.get("cat") == "kernel" and e.get("ph") == "X")
     busy, end = 0.0, -math.inf
@@ -1830,14 +1835,29 @@ def run_trace():
         if b > end:
             busy += b - max(a, end)
             end = b
-    print(f"   trace {trace['path']}: {size} bytes ({size / 1e6:.1f} MB), {len(events)} "
-          f"events, export {trace['export_s']:.2f} s, read back in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    named = {e.get("name") for e in events if e.get("ph") == "X"}
+    missing = {"iteration", "iteration.dispatch"} - named
+    if missing:
+        raise AssertionError(f"the trace's host rows lack the program's spans {missing}")
+    stamps = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "device_stamp_kernel" in str(e.get("name")))
+    if not stamps:
+        raise AssertionError("the trace's device rows show no stamp kernel")
+    # The traced region: from its first event to the end of its last.
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    wall_s = (max(e["ts"] + e["dur"] for e in timed) - min(e["ts"] for e in timed)) / 1e6
+    with open(os.path.join(profile, span_files[0])) as f:
+        lines = [json.loads(line) for line in f]
+    marks = {x["stamp"] for x in lines if "stamp" in x}
+    print(f"   trace {path}: {size} bytes ({size / 1e6:.1f} MB), {len(events)} events, "
+          f"{stamps} stamp kernels, read back in {time.perf_counter() - t0:.2f} s; "
+          f"{span_files[0]}: {sum('span' in x for x in lines)} spans, stamps "
+          f"{sorted(marks)}", flush=True)
     records, _ = check_records(os.path.join(RUN_DIR_TRACE, "metrics.jsonl"),
                                ("train_loss", "sac_qf_loss", "eval_return_mean"))
     check_fit_route(records)
     t = {k: v for k, v in records[1].items() if k.startswith("t_")}
-    print(f"   traced iteration 1: {trace['wall_s']:.4f} s under the profiler "
+    print(f"   traced iteration 1: {wall_s:.4f} s under the profiler "
           f"{json.dumps(t)}", flush=True)
     if spans:
         # The same kernel time against phase 3's iteration 1, which ran the
@@ -1847,7 +1867,7 @@ def run_trace():
             untraced = [json.loads(line) for line in f][1]
         plain_s = untraced["t_dispatch"] + untraced["t_ready"]
         print(f"   {len(spans)} kernels ran for {busy / 1e6:.4f} s: the card was busy "
-              f"{100 * busy / 1e6 / trace['wall_s']:.2f}% of the traced iteration, and "
+              f"{100 * busy / 1e6 / wall_s:.2f}% of the traced iteration, and "
               f"{100 * busy / 1e6 / plain_s:.2f}% of phase 3's untraced iteration 1 "
               f"(t_dispatch + t_ready {plain_s:.4f} s)", flush=True)
     else:

@@ -50,6 +50,17 @@ phases run eagerly on the CPU, under ``--debug_nans`` (whose checks wait
 for the device), and in a controller built with ``graphs=False``; under a
 mesh the backend decides (``graph_routes``).
 
+The loop's host time goes into spans (``utils/profiling.py``): ``iteration``
+around ``iteration.capture``, ``iteration.dispatch``, ``iteration.pull``
+(the late pull) and ``iteration.log`` (its record's commit), and ``retrain`` (which carries the fit's logs) around the
+fit's ``fit.prep`` and ``fit.epoch`` (``fit.dispatch``, ``fit.pull``); the
+records' ``t_dispatch``, ``t_ready`` and ``t_fused`` are read from them.
+The fused body stamps the card's timer at its start and after each phase
+(``STAMPS``); the stamps ride the record's one pull, and the record
+carries each phase's device time (``t_dev_collect``, ``t_dev_imagine``,
+``t_dev_policy``) and, where the card ran nothing but the previous replay
+since, how long it waited for the host between the two (``t_dev_wait``).
+
 A resumed run repeats neither the random warmup nor the initial policy
 evaluation (the JAX package repeats both, ``controller.py:1255-1266``): its
 replay, generator and counters are the snapshot's, so it goes on exactly as
@@ -128,6 +139,9 @@ STATUS_HEADERS = [
 LOG_SCALARS = ("world_buffer_samples", "collect_reward_mean",
                "imagined_reward_mean", "sac_qf_loss", "sac_policy_loss",
                "total_steps")
+# The fused iteration's device stamps: its start and the ends of its
+# phases.  The record's ``t_dev_<phase>`` is a phase's device time.
+STAMPS = ("start", "collect", "imagine", "policy")
 
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
@@ -341,10 +355,20 @@ class PDEModelBasedController:
         # Plot renders and npz writes run on one background thread, drained
         # at the end of learn().
         self.viz = BackgroundRenderer(enabled=self.primary)
-        self.last_trace: Dict = {}  # --profile_dir's trace: path, wall_s, export_s
         self._start_time = time.time()
         self.throughput = profiling.Throughput()
         self.gc_monitor = profiling.GCMonitor()
+        # The loop's host spans, shared with the fit, and the fused
+        # iteration's device stamps (``STAMPS``), at a fixed address that its
+        # graph writes.  ``_last_stamps`` are the last committed replay's;
+        # ``_chain`` says whether the card has run nothing but that replay
+        # since, so that the next replay's wait for the host is its first
+        # stamp less the last's (``t_dev_wait``).
+        self.tracer = profiling.Tracer(dev)
+        self.trainer.tracer = self.tracer
+        self._stamps = torch.zeros((len(STAMPS),), dtype=torch.int64, device=dev)
+        self._last_stamps: Optional[list] = None
+        self._chain = False
         # The graphs of the fused iteration, the phases and the fit on the
         # card, the record awaiting its pull, and whether an iteration ran
         # eagerly in this process (which a capture of the fused iteration
@@ -492,6 +516,14 @@ class PDEModelBasedController:
         copy_into(self.tr.undscaling, und)
 
     def update_surrogates(self) -> Dict[str, float]:
+        """Refit every member (step 3 of the loop) under the span
+        ``retrain``, which carries the returned logs into the tracer's
+        ring."""
+        with self.tracer.span("retrain") as span:
+            span.fields = self._update_surrogates()
+        return span.fields
+
+    def _update_surrogates(self) -> Dict[str, float]:
         cfg = self.config
         phase = "initial" if self.iteration <= 0 else "iterations"
         tc = self.train_cfgs[phase]
@@ -550,17 +582,21 @@ class PDEModelBasedController:
             # of all of them.
             scores, timers = [], {"t_fit_train": 0.0, "t_fit_val": 0.0}
             captures = {"t_fit_capture": 0.0, "fit_graph_pool_mb": 0.0}
+            member_steps = 0
             for i in range(self.fit_state.num_members):
                 _, val_loss, logs = self.trainer.fit(
                     self.fit_state.member(i), *fit_args, min_steps=tc.min_steps,
                     max_steps=tc.max_steps, patience=tc.patience,
                     host_hints={**hints, "start_step": gsteps[i]})
                 scores.append(val_loss)
+                member_steps += logs["steps"]
                 for k in timers:
                     timers[k] += logs[k]
                 for k in captures:
                     captures[k] += logs.get(k, 0.0)
             logs.update({k: round(v, 4) for k, v in timers.items()})
+            # One member at a time computes no step of a stopped member.
+            logs.update(fit_member_steps=member_steps, fit_masked_member_steps=0)
             # The members share the one-member fit's graphs.
             logs.update({k: round(v, 4) for k, v in captures.items() if v})
         logs["t_fit_total"] = round(time.perf_counter() - t_fit0, 4)
@@ -914,13 +950,12 @@ class PDEModelBasedController:
             traced = bool(cfg.profile_dir) and self.iteration == 1 and self.primary
             if traced:
                 self._prepare_graph()
+                self._chain = False  # the profiler starts between the replays
             with (profiling.trace(cfg.profile_dir) if traced
                   else contextlib.nullcontext()) as trace:
                 self._run_iteration()
             if traced:
-                self.last_trace = trace
-                print(f"[profile] trace of iteration 1 ({trace['wall_s']:.2f} s) written "
-                      f"to {trace['path']} (export {trace['export_s']:.1f} s)", flush=True)
+                self._write_spans(trace)
 
             if self.primary and self.iteration % cfg.status_report_freq == 0:
                 print(self.logger.table(STATUS_HEADERS), flush=True)
@@ -941,6 +976,20 @@ class PDEModelBasedController:
         if self.mesh is not None:
             self.mesh.barrier()  # on every rank's return, the primary's files are written
 
+    def _write_spans(self, trace: Dict) -> None:
+        """Beside the profiler's trace of an iteration, the tracer's ring and
+        the iteration's device stamps on the host clock as
+        ``spans-<unix time>.jsonl``; its record is pulled first, for its
+        stamps."""
+        self._flush_pending_log()
+        self._chain = False  # the card waits while the file is written
+        stamps = [] if self._last_stamps is None else list(zip(STAMPS, self._last_stamps))
+        path = self.tracer.write(os.path.join(os.path.dirname(trace["path"]),
+                                              f"spans-{int(time.time())}.jsonl"), stamps)
+        print(f"[profile] trace of iteration 1 ({trace['wall_s']:.2f} s) written to "
+              f"{trace['path']} (export {trace['export_s']:.1f} s); spans to {path}",
+              flush=True)
+
     def save_checkpoint(self) -> None:
         """Snapshot the training state at ``self.iteration``; returns once the
         state is copied to host memory (the file is written behind it).  The
@@ -949,6 +998,7 @@ class PDEModelBasedController:
         writes."""
         self._flush_pending_log()
         self._sync()
+        self._chain = False
         state = C.controller_state(self)
         if self.mesh is not None:
             state = C.replicate_for_snapshot(state, self.mesh)
@@ -970,12 +1020,17 @@ class PDEModelBasedController:
         SAC updates, and the packed log scalars (the JAX package's
         ``_fused_iteration_fn``).  It changes the controller's state only in
         place, so that a CUDA graph of it replays onto the same tensors."""
+        stamps = self._stamps
+        profiling.stamp(stamps, 0)
         self._fused_phase = "collect"
         _, collect_rmean = self._collect_body(nsteps, False)
+        profiling.stamp(stamps, 1)
         self._fused_phase = "imagine"
         _, imag_rmean = self._imagine_body(horizon)
+        profiling.stamp(stamps, 2)
         self._fused_phase = "policy"
         metrics = self._policy_body()
+        profiling.stamp(stamps, 3)
         self._fused_phase = "pack"
         return self._pack_scalars(collect_rmean, imag_rmean, metrics)
 
@@ -990,7 +1045,7 @@ class PDEModelBasedController:
     def _graph_state(self):
         """The tensors the fused body reads and writes."""
         return tensors_of(self.env_state, self.tr, self.pool, self.replay,
-                          self.world_replay, self.ensemble, self.sac_state)
+                          self.world_replay, self.ensemble, self.sac_state, self._stamps)
 
     def _phase(self, key, what: str, body, state):
         """A phase's ``body``, eagerly, or on the card through its CUDA graph
@@ -1012,6 +1067,7 @@ class PDEModelBasedController:
     def _note_capture(self, what: str, graph) -> None:
         """Add a capture to the next record's ``t_capture`` and
         ``graph_pool_mb``."""
+        self._chain = False  # a capture synchronises the card
         log = self._capture_log
         log["t_capture"] = round(log.get("t_capture", 0.0) + graph.seconds, 4)
         log["graph_pool_mb"] = round(log.get("graph_pool_mb", 0.0) + graph.pool_bytes / 1e6, 3)
@@ -1032,8 +1088,9 @@ class PDEModelBasedController:
         counters = (self.num_pol_updates, self.sac_state.updates)
         self._fused_phase = None
         try:
-            graph = self.graphs.capture(key, lambda: self._fused_body(key[0], key[1]),
-                                        self._graph_state())
+            with self.tracer.span("iteration.capture"):
+                graph = self.graphs.capture(key, lambda: self._fused_body(key[0], key[1]),
+                                            self._graph_state())
         except Exception as e:
             raise RuntimeError(f"capturing the fused iteration {key} as a CUDA graph "
                                f"failed{on_rank()} in its {self._fused_phase} phase: "
@@ -1060,28 +1117,39 @@ class PDEModelBasedController:
         self._warm = True
         return packed
 
-    @staticmethod
-    def _start_pull(packed: torch.Tensor):
-        """Queue the packed scalars' copy to the host behind the work that
-        computes them; ``_finish_pull`` waits for it.  On the card a replay
-        rewrites the graph's output, so the copy must leave before the next."""
+    def _start_pull(self, packed: torch.Tensor):
+        """Queue the copies of the packed scalars and of the device stamps to
+        the host behind the work that computes them; ``_finish_pull`` waits
+        for them.  On the card a replay rewrites the graph's output and the
+        stamps, so the copies must leave before the next."""
+        host, stamps = profiling.pull_async(packed), profiling.pull_async(self._stamps)
         if packed.device.type != "cuda":
-            return packed, None
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
+            return host, stamps, None
         copied = torch.cuda.Event()
         copied.record()
-        return host, copied
+        return host, stamps, copied
 
     @staticmethod
-    def _finish_pull(pull) -> Dict[str, float]:
-        host, copied = pull
+    def _finish_pull(pull) -> Tuple[Dict[str, float], list]:
+        """The pulled scalars by name, and the stamps (device nanoseconds)."""
+        host, stamps, copied = pull
         if copied is not None:
             copied.synchronize()
-        return dict(zip(LOG_SCALARS, host.tolist()))
+        return dict(zip(LOG_SCALARS, host.tolist())), stamps.tolist()
 
-    def _commit_record(self, rec: Dict, pulled: Dict[str, float]) -> None:
+    def _commit_record(self, rec: Dict, pulled: Dict[str, float],
+                       stamps: Optional[list] = None, chain: bool = False) -> None:
+        """Log an iteration's record with its pulled scalars; a fused one's
+        with its phases' device seconds from ``stamps`` and, where ``chain``
+        says the card ran nothing else since the previous replay, the wait
+        for the host between the two (``t_dev_wait``)."""
         rec = dict(rec)
+        if stamps is not None:
+            for i, phase in enumerate(STAMPS[1:]):
+                rec[f"t_dev_{phase}"] = round((stamps[i + 1] - stamps[i]) * 1e-9, 6)
+            if chain and self._last_stamps is not None:
+                rec["t_dev_wait"] = round((stamps[0] - self._last_stamps[-1]) * 1e-9, 6)
+        self._last_stamps = stamps
         rec.update({
             "world_buffer_samples": int(pulled["world_buffer_samples"]),
             "collect_reward_mean": float(pulled["collect_reward_mean"]),
@@ -1092,23 +1160,32 @@ class PDEModelBasedController:
         })
         self.logger.log(rec, commit=True)
 
-    def _flush_pending_log(self) -> None:
-        """Pull and commit the previous fused iteration's record.  Called
+    def _flush_pending_log(self) -> Optional[profiling.Span]:
+        """Pull and commit the previous fused iteration's record, and return
+        the span of its commit (None if no record was pending).  Called
         one iteration behind (its copy was queued behind its work, which the
         host did not wait for), and before anything that must see a complete
         metrics stream: an evaluation or retrain iteration, a checkpoint, the
         end of ``learn()``."""
         if self._pending_log is None:
-            return
-        rec, pull, t0 = self._pending_log
+            return None
+        rec, pull, t0, chain = self._pending_log
         self._pending_log = None
-        pulled = self._finish_pull(pull)
+        with self.tracer.span("iteration.pull") as span:
+            pulled, stamps = self._finish_pull(pull)
         # Dispatch -> results on the host: it spans the next iteration's
         # dispatch, so it bounds the device time from above.
-        rec["t_ready"] = round(time.perf_counter() - t0, 4)
-        self._commit_record(rec, pulled)
+        rec["t_ready"] = round((span.end - t0) * 1e-9, 4)
+        with self.tracer.span("iteration.log") as logged:
+            self._commit_record(rec, pulled, stamps, chain)
+        return logged
 
     def _run_iteration(self) -> None:
+        """One iteration of the loop under the span ``iteration``."""
+        with self.tracer.span("iteration"):
+            self._iteration()
+
+    def _iteration(self) -> None:
         cfg = self.config
         if self.finite is not None:
             self.finite.iteration = self.iteration
@@ -1118,11 +1195,14 @@ class PDEModelBasedController:
         key = self._fused_key()
         self._prepare_graph()
         timings: Dict[str, float] = {}
-        t = time.perf_counter()
 
         if key is not None:
-            pull = self._start_pull(self._dispatch(key))
-            timings["t_dispatch"] = round(time.perf_counter() - t, 4)
+            chain = self._chain
+            with self.tracer.span("iteration.dispatch") as dispatch:
+                pull = self._start_pull(self._dispatch(key))
+            timings["t_dispatch"] = round(dispatch.seconds, 4)
+            # An evaluation runs on the card after this replay.
+            self._chain = not eval_iter
             if not eval_iter:
                 # Pipelined: this record waits for its pull, the previous
                 # one is committed now.
@@ -1135,15 +1215,19 @@ class PDEModelBasedController:
                     **self._take_captures(),
                     "time": time.time() - self._start_time,
                 }
-                self._flush_pending_log()
-                self._pending_log = (rec, pull, time.perf_counter())
+                flushed = self._flush_pending_log()
+                self._pending_log = (rec, pull, (flushed or dispatch).end, chain)
                 self.iteration += 1
                 return
             self._flush_pending_log()
-            pulled = self._finish_pull(pull)
-            timings["t_fused"], t = round(time.perf_counter() - t, 4), time.perf_counter()
+            with self.tracer.span("iteration.pull") as span:
+                pulled, stamps = self._finish_pull(pull)
+            timings["t_fused"] = round((span.end - dispatch.start) * 1e-9, 4)
+            t = time.perf_counter()
         else:
+            t = time.perf_counter()
             self._flush_pending_log()
+            self._chain, stamps, chain = False, None, False
 
             def lap(name: str, t: float) -> float:
                 # Under fuse_iteration a retrain does not wait at each phase.
@@ -1203,7 +1287,7 @@ class PDEModelBasedController:
             **timings,
             **self._take_captures(),
             "time": time.time() - self._start_time,
-        }, pulled)
+        }, pulled, stamps, chain)
         self.iteration += 1
 
     def graph_summary(self) -> Dict[str, Dict]:

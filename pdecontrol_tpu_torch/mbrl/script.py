@@ -24,7 +24,10 @@ asks for the CPU.
 By default an iteration that does not retrain runs as one body, on the GPU
 a CUDA graph captured at the first such iteration of each horizon and
 replayed from then on, and its metrics record is committed one iteration
-late (``t_dispatch``, ``t_ready``; ``t_fused`` on an evaluation iteration);
+late (``t_dispatch``, ``t_ready``; ``t_fused`` on an evaluation iteration),
+with each phase's device time between the stamps its graph writes
+(``t_dev_collect``, ``t_dev_imagine``, ``t_dev_policy``) and the card's wait
+since the previous replay (``t_dev_wait``);
 a retrain iteration runs its phases one after another, on the GPU each a
 replayed CUDA graph, and so does every iteration under
 ``--no_fuse_iteration``, each phase then timed after a device
@@ -32,14 +35,17 @@ synchronisation (``t_collect``, ``t_imagine``, ``t_policy``, ``t_pull``).
 A retrain fits all ensemble members in lock-step, on the GPU each TBPTT
 step and each validation step a replayed CUDA graph, with one pull of the
 members' val losses per epoch (``t_fit_prep``, ``t_fit_dispatch``,
-``t_fit_ready``); ``--no_fuse_fit`` runs the fit eagerly (``t_fit_val`` in
+``t_fit_ready``; the device's ``t_fit_dev_step``, ``t_fit_dev_val``,
+``t_fit_dev_wait``; the member-steps computed and those of stopped
+members, ``fit_member_steps`` and ``fit_masked_member_steps``); ``--no_fuse_fit`` runs the fit eagerly (``t_fit_val`` in
 place of ``t_fit_ready``), and ``--sequential_member_training`` fits one
 member after another (each step a replayed graph unless ``--no_fuse_fit``),
 its record carrying the last member's fit logs.  ``--checkpoint_freq N`` snapshots the whole
 training state every N iterations into ``<run_dir>/checkpoints`` and
 ``--resume`` carries on from the last snapshot, appending to the same
 ``metrics.jsonl``; ``--profile_dir`` writes a ``torch.profiler`` trace of
-iteration 1; ``--debug_nans`` turns on autograd's anomaly detection and
+iteration 1 and beside it ``spans-<time>.jsonl``, the loop's host spans and
+that iteration's device stamps on the host's clock; ``--debug_nans`` turns on autograd's anomaly detection and
 finiteness checks at the phase boundaries (each waits for the device), and
 so runs the eager phases.  ``--factory`` takes each of the five families,
 ``--env_id`` the KS and the Burgers env (which
@@ -110,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="carry on from the last snapshot in <run_dir>/checkpoints")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="write a torch.profiler trace of iteration 1 here")
+                   help="write a torch.profiler trace of iteration 1 here, and the loop's "
+                        "host spans and device stamps beside it")
     p.add_argument("--no_fuse_iteration", action="store_true",
                    help="run every iteration's phases one after another (on the GPU each "
                         "its own CUDA graph), each timed after a device synchronisation, in "

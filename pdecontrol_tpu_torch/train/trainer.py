@@ -66,10 +66,16 @@ from pdecontrol_tpu_torch.models.surrogate import (
     stack_parameters,
 )
 from pdecontrol_tpu_torch.parallel.mesh import MODEL_AXIS
+from pdecontrol_tpu_torch.utils import profiling
 from pdecontrol_tpu_torch.utils.graphs import copy_into, tensors_of
 
 # optax.scale_by_adam's defaults.
 B1, B2, EPS = 0.9, 0.999, 1e-8
+
+# The lock-step fit's device stamps (``FitInputs.stamps``): the summed
+# device time of its step replays and of its validation replays, the fit's
+# first stamp and its last.
+FIT_STEP, FIT_VAL, FIT_FIRST, FIT_LAST = range(4)
 
 
 class TrainConfig(NamedTuple):
@@ -135,12 +141,14 @@ class TrainerState:
 class FitInputs:
     """What the lock-step step reads besides the state, at fixed addresses so
     that a CUDA graph of it replays each epoch: the learning rate, the
-    ``active`` mask over members and the split's row masks."""
+    ``active`` mask over members and the split's row masks; and the slots
+    its device stamps write (``FIT_STEP`` ...; the lock-step fit's only)."""
 
     lr: torch.Tensor
     active: torch.Tensor
     train_mask: torch.Tensor
     val_mask: torch.Tensor
+    stamps: Optional[torch.Tensor] = None
 
 
 def tbtt_reencode_mask(t_total: int, tbtt: int) -> np.ndarray:
@@ -198,6 +206,8 @@ class SurrogateTrainer:
         self.fuse_fit = True
         self.graphs = None
         self.mesh = None
+        # The lock-step fit's host spans; a controller hands over its own.
+        self.tracer = profiling.Tracer()
         self._inputs: Optional[FitInputs] = None
         # The one-member fit's slot and inputs (``_one_member``).
         self._slot: Optional[TrainerState] = None
@@ -525,7 +535,8 @@ class SurrogateTrainer:
             inp = self._inputs = FitInputs(
                 lr=torch.zeros((), dtype=p.dtype, device=p.device),
                 active=torch.ones((state.num_members,), dtype=torch.bool, device=p.device),
-                train_mask=mask, val_mask=mask.clone())
+                train_mask=mask, val_mask=mask.clone(),
+                stamps=torch.zeros((FIT_LAST + 1,), dtype=torch.int64, device=p.device))
         return inp
 
     def _run(self, key: Tuple, body: Callable[[], torch.Tensor],
@@ -558,7 +569,15 @@ class SurrogateTrainer:
         """Train ALL members of ``state`` in lock-step, each with its own
         early stopping (the JAX package's ``fit_ensemble``: its per-epoch
         host loop, whose bookkeeping its whole-fit program replays).
-        Returns the state, the per-member val losses and the logs."""
+        Returns the state, the per-member val losses and the logs.
+
+        The host's time goes into the spans ``fit.prep`` and, per epoch,
+        ``fit.epoch`` around ``fit.dispatch`` and ``fit.pull`` (the logs'
+        ``t_fit_prep``, ``t_fit_dispatch`` and ``t_fit_ready``); the card's
+        into the stamps (``t_fit_dev_step``, ``t_fit_dev_val``, and the
+        card's idle between the fit's first and last stamp,
+        ``t_fit_dev_wait``).  ``fit_member_steps`` counts the member-steps computed,
+        ``fit_masked_member_steps`` those of members already stopped."""
         cfg = self.config
         min_steps = cfg.min_steps if min_steps is None else min_steps
         max_steps = cfg.max_steps if max_steps is None else max_steps
@@ -566,117 +585,145 @@ class SurrogateTrainer:
         max_epochs = cfg.max_epochs if max_epochs is None else max_epochs
         hints = host_hints or {}
         self._check_graphed(generator)
+        tracer = self.tracer
 
-        t_prep0 = time.perf_counter()
-        m = state.num_members
-        mesh = self.mesh
-        # This rank's members and their state.
-        rows = None if mesh is None else mesh.model_slice(m)
-        local = state if rows is None else state.rows(rows)
-        fill, train_np, val_np = _host_inputs(hints, replay, train_mask, val_mask)
-        # Cumulative step basis so a steptype='step' curriculum advances
-        # across retrains (matches fit's start_step + steps_taken).
-        start_step = (int(hints["start_step"]) if "start_step" in hints
-                      else int(state.global_step.max()))
-        inp = self._fit_inputs(local, train_mask.shape[0])
-        inp.train_mask.copy_(train_mask)
-        inp.val_mask.copy_(val_mask)
-        captured: List = []
+        with tracer.span("fit.prep") as prep:
+            m = state.num_members
+            mesh = self.mesh
+            # This rank's members and their state.
+            rows = None if mesh is None else mesh.model_slice(m)
+            local = state if rows is None else state.rows(rows)
+            fill, train_np, val_np = _host_inputs(hints, replay, train_mask, val_mask)
+            # Cumulative step basis so a steptype='step' curriculum advances
+            # across retrains (matches fit's start_step + steps_taken).
+            start_step = (int(hints["start_step"]) if "start_step" in hints
+                          else int(state.global_step.max()))
+            inp = self._fit_inputs(local, train_mask.shape[0])
+            inp.train_mask.copy_(train_mask)
+            inp.val_mask.copy_(val_mask)
+            stamps = inp.stamps
+            stamps.zero_()
+            captured: List = []
 
-        def graph_state():
-            return tensors_of(state, replay, und, stransf, inp)
+            def graph_state():
+                return tensors_of(state, replay, und, stransf, inp)
 
-        best = np.full(m, np.inf)
-        wait = np.zeros(m, int)
-        stopped = np.zeros(m, bool)
-        val_losses = np.full(m, np.nan)
-        steps_taken = np.zeros(m, int)
-        epoch = 0
-        last_tl = float("nan")
-        logs: Dict[str, float] = {}
-        t_prep = time.perf_counter() - t_prep0
+            best = np.full(m, np.inf)
+            wait = np.zeros(m, int)
+            stopped = np.zeros(m, bool)
+            val_losses = np.full(m, np.nan)
+            steps_taken = np.zeros(m, int)
+            member_steps = masked_steps = 0
+            epoch = 0
+            last_tl = float("nan")
+            logs: Dict[str, float] = {}
+            pulled_stamps = None
         t_dispatch = t_pull = 0.0
 
         while not stopped.all() and epoch < max_epochs:
-            k = int(curriculum(iteration=iteration, epoch=epoch,
-                               step=start_step + int(steps_taken.max())))
-            length = cfg.tau + k
-            lr = cfg.lr * (cfg.lr_gamma ** (epoch // cfg.step_size))
-            _check_windows(fill, train_np, val_np, length)
-            nb = _batches(fill, train_np, length, cfg.batch_size)
-            nb_eff = nb
-            if max_steps:
-                nb_eff = max(0, min(nb, max_steps - int(steps_taken.max())))
+            with tracer.span("fit.epoch"):
+                k = int(curriculum(iteration=iteration, epoch=epoch,
+                                   step=start_step + int(steps_taken.max())))
+                length = cfg.tau + k
+                lr = cfg.lr * (cfg.lr_gamma ** (epoch // cfg.step_size))
+                _check_windows(fill, train_np, val_np, length)
+                nb = _batches(fill, train_np, length, cfg.batch_size)
+                nb_eff = nb
+                if max_steps:
+                    nb_eff = max(0, min(nb, max_steps - int(steps_taken.max())))
 
-            def draw(mask, length):
-                # Every member's batch, of which a rank of a mesh keeps its own.
-                obs, actions = self._draw_members(replay, generator, m, length, mask,
-                                                  stransf)
-                return (obs, actions) if rows is None else (obs[rows], actions[rows])
+                def draw(mask, length):
+                    # Every member's batch, of which a rank of a mesh keeps its own.
+                    obs, actions = self._draw_members(replay, generator, m, length, mask,
+                                                      stransf)
+                    return (obs, actions) if rows is None else (obs[rows], actions[rows])
 
-            def train_body(length=length):
-                obs, actions = draw(inp.train_mask, length)
-                return self.lockstep_train_step(local, obs, actions, und, inp.lr,
-                                                inp.active)
+                def train_body(length=length):
+                    profiling.stamp(stamps, FIT_STEP, profiling.SUB)
+                    obs, actions = draw(inp.train_mask, length)
+                    losses = self.lockstep_train_step(local, obs, actions, und, inp.lr,
+                                                      inp.active)
+                    profiling.stamp(stamps, FIT_STEP, profiling.ADD)
+                    return losses
 
-            def val_body(length=length):
-                obs, actions = draw(inp.val_mask, length)
-                return self.lockstep_val_step(local, obs, actions, und,
-                                              stransf)["val_loss"]
+                def val_body(length=length):
+                    profiling.stamp(stamps, FIT_VAL, profiling.SUB)
+                    obs, actions = draw(inp.val_mask, length)
+                    vl = self.lockstep_val_step(local, obs, actions, und, stransf)["val_loss"]
+                    profiling.stamp(stamps, FIT_VAL, profiling.ADD)
+                    return vl
 
-            t0 = time.perf_counter()
-            inp.lr.fill_(lr)
-            inp.active.copy_(torch.as_tensor(~stopped if rows is None else ~stopped[rows]))
-            tl = None
-            for _ in range(nb_eff):
-                # The clip is read when the step is captured, so it keys it.
-                tl = self._run(("fit_step", length, m, cfg.batch_size, cfg.tau, cfg.tbtt,
-                                cfg.gradient_clip_val), train_body, graph_state, captured)
-            vl = self._run(("fit_val", length, m, cfg.batch_size), val_body, graph_state,
-                           captured)
-            steps_taken[~stopped] += nb_eff
-            if max_steps and nb_eff < nb:
-                stopped[:] = True
-            t_dispatch += time.perf_counter() - t0
+                with tracer.span("fit.dispatch") as dispatch:
+                    if epoch == 0:
+                        profiling.stamp(stamps, FIT_FIRST)
+                    inp.lr.fill_(lr)
+                    inp.active.copy_(torch.as_tensor(~stopped if rows is None
+                                                     else ~stopped[rows]))
+                    tl = None
+                    for _ in range(nb_eff):
+                        # The clip is read when the step is captured, so it keys it.
+                        tl = self._run(("fit_step", length, m, cfg.batch_size, cfg.tau,
+                                        cfg.tbtt, cfg.gradient_clip_val),
+                                       train_body, graph_state, captured)
+                    vl = self._run(("fit_val", length, m, cfg.batch_size), val_body,
+                                   graph_state, captured)
+                    profiling.stamp(stamps, FIT_LAST)
+                    # Every member computes each step; the stopped ones are
+                    # masked out of the update.
+                    member_steps += nb_eff * m
+                    masked_steps += nb_eff * int(stopped.sum())
+                    steps_taken[~stopped] += nb_eff
+                    if max_steps and nb_eff < nb:
+                        stopped[:] = True
+                t_dispatch += dispatch.seconds
 
-            # The epoch's one pull: the val losses and the mean over all
-            # members of the last batch's train loss, every member's on
-            # every rank of a mesh, so that all stop the same members.
-            t0 = time.perf_counter()
-            if mesh is not None:
-                vl, *tl = mesh.gather([vl] + ([] if tl is None else [tl]), MODEL_AXIS)
-                tl = tl[0] if tl else None
-            pulled = (vl if tl is None else torch.cat([vl, torch.mean(tl)[None]]))
-            pulled = pulled.to("cpu", torch.float64).numpy()
-            vl = pulled[:m]
-            if tl is not None:
-                last_tl = float(pulled[m])
-            t_pull += time.perf_counter() - t0
-            val_losses = np.where(stopped, val_losses, vl)
+                # The epoch's one pull: the val losses and the mean over all
+                # members of the last batch's train loss, every member's on
+                # every rank of a mesh, so that all stop the same members;
+                # the stamps beside them, in a copy of their own.
+                with tracer.span("fit.pull") as pull:
+                    if mesh is not None:
+                        vl, *tl = mesh.gather([vl] + ([] if tl is None else [tl]), MODEL_AXIS)
+                        tl = tl[0] if tl else None
+                    pulled_stamps = profiling.pull_async(stamps)
+                    pulled = (vl if tl is None else torch.cat([vl, torch.mean(tl)[None]]))
+                    pulled = pulled.to("cpu", torch.float64).numpy()
+                    vl = pulled[:m]
+                    if tl is not None:
+                        last_tl = float(pulled[m])
+                t_pull += pull.seconds
+                val_losses = np.where(stopped, val_losses, vl)
 
-            improved = vl < best
-            wait = np.where(stopped | improved, np.where(improved, 0, wait), wait + 1)
-            best = np.minimum(best, np.where(stopped, best, vl))
-            newly = (~stopped) & (wait >= patience) & (steps_taken >= min_steps)
-            stopped |= newly
-            if max_steps and steps_taken.max() >= max_steps:
-                stopped[:] = True
-            epoch += 1
-            logs = {
-                "train_loss": last_tl,
-                "val_loss": float(np.mean(val_losses)),
-                "epochs": epoch,
-                "curriculum_K": k,
-                "lr": lr,
-            }
+                improved = vl < best
+                wait = np.where(stopped | improved, np.where(improved, 0, wait), wait + 1)
+                best = np.minimum(best, np.where(stopped, best, vl))
+                newly = (~stopped) & (wait >= patience) & (steps_taken >= min_steps)
+                stopped |= newly
+                if max_steps and steps_taken.max() >= max_steps:
+                    stopped[:] = True
+                epoch += 1
+                logs = {
+                    "train_loss": last_tl,
+                    "val_loss": float(np.mean(val_losses)),
+                    "epochs": epoch,
+                    "curriculum_K": k,
+                    "lr": lr,
+                }
 
         if mesh is not None:
             # Every rank holds every member for the rollouts.
             mesh.gather_rows_(state.tensors(), MODEL_AXIS)
         logs["steps"] = int(steps_taken.max())
-        logs["t_fit_prep"] = round(t_prep, 4)
+        logs["fit_member_steps"] = member_steps
+        logs["fit_masked_member_steps"] = masked_steps
+        logs["t_fit_prep"] = round(prep.seconds, 4)
         logs["t_fit_dispatch"] = round(t_dispatch, 4)
         logs["t_fit_ready" if self.fuse_fit else "t_fit_val"] = round(t_pull, 4)
+        if pulled_stamps is not None:
+            step, val, first, last = (t * 1e-9 for t in pulled_stamps.tolist())
+            logs["t_fit_dev_step"] = round(step, 6)
+            logs["t_fit_dev_val"] = round(val, 6)
+            logs["t_fit_dev_wait"] = round(last - first - step - val, 6)
         if captured:
             logs["t_fit_capture"] = round(sum(g.seconds for g in captured), 4)
             logs["fit_graph_pool_mb"] = round(sum(g.pool_bytes for g in captured) / 1e6, 3)

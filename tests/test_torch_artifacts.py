@@ -154,12 +154,28 @@ def test_report_renders_a_port_run(run_dir, tmp_path):
 
 
 def test_profile_dir_writes_a_trace_of_iteration_1(run_dir):
-    traces = os.listdir(run_dir / "profile")
-    assert len(traces) == 1 and traces[0].startswith("trace-") and traces[0].endswith(".json")
+    """The trace of iteration 1, with the loop's spans among its host
+    events, and beside it the spans file: the ring of host spans and the
+    iteration's four device stamps, in order, inside its dispatch."""
+    files = sorted(os.listdir(run_dir / "profile"))
+    traces = [f for f in files if f.startswith("trace-") and f.endswith(".json")]
+    spans = [f for f in files if f.startswith("spans-") and f.endswith(".jsonl")]
+    assert len(traces) == len(spans) == 1 and len(files) == 2, files
     events = json.load(open(run_dir / "profile" / traces[0]))["traceEvents"]
     names = {e.get("name") for e in events}
     assert len(events) > 1000
     assert "aten::addmm" in names  # the SAC updates of the traced iteration
+    assert {"iteration", "iteration.dispatch"} <= names  # the spans, under the profiler
+    lines = [json.loads(line) for line in open(run_dir / "profile" / spans[0])]
+    assert lines[0]["clock"] == "perf_counter_ns" and lines[0]["device_offset_ns"] == 0
+    ring = [x for x in lines if "span" in x]
+    assert {"iteration", "iteration.dispatch", "retrain", "fit.epoch"} <= {x["span"] for x in ring}
+    assert all(x["start_ns"] <= x["end_ns"] for x in ring)
+    stamps = [(x["stamp"], x["host_ns"]) for x in lines if "stamp" in x]
+    assert [name for name, _ in stamps] == ["start", "collect", "imagine", "policy"]
+    assert [t for _, t in stamps] == sorted(t for _, t in stamps)
+    dispatch = [x for x in ring if x["span"] == "iteration.dispatch"][-1]
+    assert dispatch["start_ns"] <= stamps[0][1] and stamps[-1][1] <= dispatch["end_ns"]
 
 
 def test_trace_reports_its_path(tmp_path):

@@ -17,7 +17,11 @@ fused iteration's CUDA graph to its eager body: a capture that leaves the
 generator and the counters as they were, a replay equal to the eager
 iteration in every tensor and record field, launch counts that see the
 replay, a body that waits for nothing on the host, and two horizons' graphs
-in one pool.  Then the lock-step fit of the members: replayed from its
+in one pool.  The device stamps (``utils/profiling.py``): each phase of the
+replay and of the eager body stamped, captured stamps written anew at
+every replay, the card's timer resolving a microsecond between stamps
+launched back to back (the resolution is printed), and the tracer's offset
+placing a stamp between host reads.  Then the lock-step fit of the members: replayed from its
 graphs it equals the eager fit bit for bit, a capture leaves the state and
 the generator as they were, and a rebound parameter makes a replay raise.
 The group after it
@@ -539,6 +543,112 @@ def test_graphs_of_two_horizons_share_one_pool(dev, tmp_path):
         eager.logger.finish()
 
 
+def test_graphed_record_carries_the_stamped_phases(graphed_and_eager):
+    """The replay's stamps (written inside the graph) and the eager body's
+    stamps both give every phase a positive device time, in order on the
+    card's timer."""
+    import json
+
+    for ctl in graphed_and_eager[:2]:
+        r = [json.loads(line) for line in open(f"{ctl.config.run_dir}/metrics.jsonl")][-1]
+        assert r["iteration"] == 1
+        assert all(r[f"t_dev_{p}"] > 0 for p in ("collect", "imagine", "policy")), r
+        stamps = ctl._last_stamps
+        assert stamps == sorted(stamps) and len(set(stamps)) == len(stamps), stamps
+
+
+def _stamped_graph(dev, slots, work):
+    """A CUDA graph of ``work`` between an add-form pair into slot 0, with
+    SET stamps before (slot 1) and after it (slot 2)."""
+    from pdecontrol_tpu_torch.utils import profiling
+
+    def body():
+        profiling.stamp(slots, 1)
+        profiling.stamp(slots, 0, profiling.SUB)
+        out = work()
+        profiling.stamp(slots, 0, profiling.ADD)
+        profiling.stamp(slots, 2)
+        return out
+
+    body()  # loads the stamp kernel and the work's kernels
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    return graph
+
+
+def test_stamps_increase_across_replays(dev):
+    """Replayed, the captured stamps are written anew each time: the SET
+    stamps move forward from replay to replay and bracket the work, and the
+    add-form pair sums the work's device time over the replays."""
+    slots = torch.zeros((3,), dtype=torch.int64, device=dev)
+    x = torch.randn((512, 512), device=dev)
+    graph = _stamped_graph(dev, slots, lambda: [x @ x for _ in range(8)][-1])
+    slots.zero_()
+    seen = []
+    for _ in range(4):
+        graph.replay()
+        torch.cuda.synchronize()
+        seen.append(slots.tolist())
+    for (total, start, end), prev in zip(seen, [None] + seen[:-1]):
+        assert start < end
+        if prev is not None:
+            assert start > prev[2] and total > prev[0]
+    # Each pair's time lies inside its replay's SET stamps.
+    spans = [end - start for _, start, end in seen]
+    assert 0 < seen[-1][0] <= sum(spans)
+
+
+def test_back_to_back_stamps_resolve_a_microsecond(dev):
+    """64 SET stamps captured back to back in one graph: the card's timer
+    never goes back, and the smallest step between two stamps that differ is
+    1 us or less.  Prints the steps' smallest, median and greatest
+    common divisor (the timer's resolution)."""
+    import math
+
+    from pdecontrol_tpu_torch.utils import profiling
+
+    slots = torch.zeros((64,), dtype=torch.int64, device=dev)
+    profiling.stamp(slots, 0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(64):
+            profiling.stamp(slots, i)
+    steps = []
+    for _ in range(8):
+        graph.replay()
+        torch.cuda.synchronize()
+        t = slots.tolist()
+        steps.extend(b - a for a, b in zip(t, t[1:]))
+    assert min(steps) >= 0
+    moved = [d for d in steps if d > 0]
+    assert moved and min(moved) <= 1000, sorted(set(steps))[:10]
+    print(f"[stamps] back-to-back steps: smallest {min(moved)} ns, median "
+          f"{sorted(steps)[len(steps) // 2]} ns, gcd {math.gcd(*moved)} ns, "
+          f"{len(steps) - len(moved)} of {len(steps)} equal")
+
+
+def test_clock_offset_places_stamps_on_the_host_clock(dev):
+    """A stamp converted by the tracer's offset falls between host reads
+    taken around it with a synchronisation, to within 50 us."""
+    import time
+
+    from pdecontrol_tpu_torch.utils import profiling
+
+    tracer = profiling.Tracer(dev)
+    slots = torch.zeros((1,), dtype=torch.int64, device=dev)
+    for _ in range(5):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter_ns()
+        profiling.stamp(slots, 0)
+        torch.cuda.synchronize()
+        h1 = time.perf_counter_ns()
+        t = tracer.host_ns(int(slots.item()))
+        assert h0 - 50_000 <= t <= h1 + 50_000, (h0, t, h1)
+
+
 # ------------------------------------------- the lock-step fit as graphs
 FIT_GRAPHS = ("fit_step", "fit_val")
 
@@ -581,8 +691,12 @@ def test_graphed_fit_equals_the_eager_fit(fitted):
         torch.cuda.synchronize()
     assert len(graphed.graphs.graphs) == captured and not eager.graphs.graphs
     assert "t_fit_ready" in logs["graphed"] and "t_fit_val" in logs["eager"]
-    for k in ("val_loss", "train_loss", "elite_scores", "steps", "epochs", "lr"):
+    for k in ("val_loss", "train_loss", "elite_scores", "steps", "epochs", "lr",
+              "fit_member_steps", "fit_masked_member_steps"):
         assert logs["graphed"][k] == logs["eager"][k], k
+    for route in logs.values():  # the stamps inside the graphs and out
+        assert route["t_fit_dev_step"] > 0 and route["t_fit_dev_val"] > 0, route
+        assert route["t_fit_dev_wait"] >= 0, route
     a, b = _fit_state(graphed), _fit_state(eager)
     for k in a:
         assert torch.equal(a[k], b[k]), k

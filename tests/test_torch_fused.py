@@ -43,6 +43,10 @@ JAX_FUSED_EVAL = (JAX_PIPELINED - {"t_ready"}) | {
     "t_fused", "t_eval", "eval_return_mean", "eval_return_std", "surrogate_open_loop_mse",
     "reward_model_error", "world_return_mean", "world_return_std",
 }
+# The port's device stamps: each phase's device time in every fused record,
+# and the card's wait for the host since the previous replay in one that
+# follows a fused, non-evaluation iteration.
+PORT_STAMPS = {"t_dev_collect", "t_dev_imagine", "t_dev_policy"}
 
 
 @pytest.fixture(autouse=True)
@@ -141,11 +145,13 @@ def test_fused_records_carry_the_jax_fields(runs):
         i = r["iteration"]
         if i % 4 == 0:  # a retrain runs its phases eagerly, as in JAX
             assert {"t_collect", "t_surrogate", "t_imagine", "t_policy", "t_pull"} <= set(r)
-            assert not {"t_dispatch", "t_ready", "t_fused"} & set(r)
-        elif i % 3 == 0:
-            assert set(r) == JAX_FUSED_EVAL | LOGGER, i
+            assert not ({"t_dispatch", "t_ready", "t_fused", "t_dev_wait"} | PORT_STAMPS) & set(r)
+            continue
+        wait = {"t_dev_wait"} if (i - 1) % 4 and (i - 1) % 3 else set()
+        if i % 3 == 0:
+            assert set(r) == JAX_FUSED_EVAL | LOGGER | PORT_STAMPS | wait, i
         else:
-            assert set(r) == JAX_PIPELINED | LOGGER, i
+            assert set(r) == JAX_PIPELINED | LOGGER | PORT_STAMPS | wait, i
 
 
 def test_records_are_committed_one_iteration_late(runs):

@@ -248,10 +248,13 @@ def test_mesh_flags(flags, tmp_path):
 # (``pdecontrol_tpu/mbrl/controller.py:543-636``, ``train/trainer.py``), and
 # ``t_fit_total`` on every route.
 FIT_COMMON = {"t_fit_total", "steps", "epochs", "curriculum_K", "lr", "train_loss",
-              "val_loss", "elite_scores", "t_split", "t_post"}
+              "val_loss", "elite_scores", "t_split", "t_post", "fit_member_steps",
+              "fit_masked_member_steps"}
+# The lock-step fit's device stamps, on either of its routes.
+FIT_STAMPS = {"t_fit_dev_step", "t_fit_dev_val", "t_fit_dev_wait"}
 FIT_ROUTE_FIELDS = {
-    "lockstep": FIT_COMMON | {"t_fit_prep", "t_fit_dispatch", "t_fit_ready"},
-    "lockstep_eager": FIT_COMMON | {"t_fit_prep", "t_fit_dispatch", "t_fit_val"},
+    "lockstep": FIT_COMMON | FIT_STAMPS | {"t_fit_prep", "t_fit_dispatch", "t_fit_ready"},
+    "lockstep_eager": FIT_COMMON | FIT_STAMPS | {"t_fit_prep", "t_fit_dispatch", "t_fit_val"},
     "sequential": FIT_COMMON | {"val_delta_loss", "t_fit_train", "t_fit_val"},
 }
 
@@ -295,3 +298,11 @@ def test_fusion_flags_are_accepted(tmp_path, flags, iteration_route, fit_route):
     assert not other & set(retrain), sorted(other & set(retrain))
     assert len(retrain["elite_scores"]) == 2
     assert all(math.isfinite(retrain[k]) for k in ("train_loss", "val_loss"))
+    # One member at a time masks nothing; in lock-step each of the longest
+    # member's steps computes both members.
+    if fit_route == "sequential":
+        assert retrain["fit_masked_member_steps"] == 0
+        # Both members' steps, each from 2 to the initial fit's max_steps, 6.
+        assert retrain["steps"] + 2 <= retrain["fit_member_steps"] <= 2 * 6
+    else:
+        assert retrain["fit_member_steps"] == 2 * retrain["steps"]

@@ -121,12 +121,15 @@ TWINS = {
 }
 # Fields of a record that read the host's clock or its garbage collector.
 WALL_CLOCK = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2")
+# The port's counts of the lock-step fit, which the JAX package does not log.
+PORT_ONLY = ("fit_member_steps", "fit_masked_member_steps")
 
 
 def shared_fields(record: Dict) -> Dict:
-    """The fields of a ``metrics.jsonl`` record that do not read the clock."""
+    """The fields of a ``metrics.jsonl`` record that do not read the clock
+    and that both packages log."""
     return {k: v for k, v in record.items()
-            if k not in WALL_CLOCK and not k.startswith("t_")}
+            if k not in WALL_CLOCK + PORT_ONLY and not k.startswith("t_")}
 
 
 # ----------------------------------------------------------- the site table
