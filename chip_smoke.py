@@ -109,8 +109,10 @@ Twenty-three phases, each timed:
      three routes' non-retrain iteration wall times and the two unfused
      routes' phase times are printed.  Then the cost of the world step's
      auto-reset, on phase 8's controller: ``imagine`` at horizon 3 with
-     the port's form (a reset drawn at every step but a round's last, picked
-     on the card), the JAX package's (a reset drawn at every step) and a
+     the port's form (a reset drawn at every step but a round's last; in a
+     graph its rollout in a conditional node that runs only where the batch
+     is done), a select form (the same draws, the fresh state computed at
+     every step and picked on the card, as JAX's ``lax.select``) and a
      host-read form (the host reads whether the batch is done and resets
      only then), eagerly and, for the two that need no host read, as a
      replayed CUDA graph;
@@ -266,8 +268,10 @@ RUN_DIR_MESH = os.path.join(HERE, "runs", "chip_smoke_mesh")
 RUN_DIR_MESH_ONE = os.path.join(HERE, "runs", "chip_smoke_mesh_1x1")
 RUN_DIR_LONG = os.path.join(HERE, "runs", "chip_smoke_long")
 RUN_DIR_DISSIPATION = os.path.join(HERE, "runs", "chip_smoke_dissipation")
-# K1, K2, and the loop's device stamps (``utils/profiling.py``).
-KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu", "device_stamp.cu")
+# K1, K2, the loop's device stamps (``utils/profiling.py``) and the conditional
+# node of the world step's auto-reset (``utils/graphs.py``).
+KERNEL_SOURCES = ("ks_control_period.cu", "ks_control_period_limb.cu", "device_stamp.cu",
+                  "graph_conditional.cu")
 LIMB_MODES = ("bf16", "bf16_3x", "bf16_4x")
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
 # dense): float32 outside the tensor cores, bf16 products with float32
@@ -1886,10 +1890,24 @@ def time_world_forms(ctl):
 
     import torch
 
-    from pdecontrol_tpu_torch.mbrl.world import WorldModel
+    from pdecontrol_tpu_torch.mbrl.world import WorldModel, _pick
     from pdecontrol_tpu_torch.utils.graphs import GraphCache
 
     world = ctl.world
+
+    def select_step(self, generator, state, ens, agent_action, tr, horizon, replay,
+                    reset=True):
+        env_action = tr.agent_to_env_action(agent_action)
+        stepped, reward = self.advance(generator, state, ens,
+                                       tr.env_action_to_world(env_action), tr)
+        env_limit = stepped.timesteps >= self.max_episode_steps
+        all_done = torch.all(env_limit | (stepped.simulated >= horizon))
+        truncated = torch.broadcast_to(all_done, env_limit.shape)
+        state = stepped
+        if reset:
+            state = _pick(all_done, self.reset(generator, ens, replay, tr), stepped)
+        return state, (state.obs, reward, torch.zeros_like(truncated), truncated,
+                       stepped.obs)
 
     def host_step(self, generator, state, ens, agent_action, tr, horizon, replay,
                   reset=True):
@@ -1903,10 +1921,7 @@ def time_world_forms(ctl):
         return state, (state.obs, reward, torch.zeros_like(truncated), truncated,
                        stepped.obs)
 
-    def jax_step(self, *args, reset=True, **kwargs):
-        return WorldModel.step(self, *args, reset=True, **kwargs)
-
-    forms = {"port": WorldModel.step, "jax": jax_step, "host": host_step}
+    forms = {"port": WorldModel.step, "select": select_step, "host": host_step}
     out = {}
     try:
         for name, step in forms.items():

@@ -138,7 +138,7 @@ STATUS_HEADERS = [
 # Per-iteration log scalars, pulled to the host in one transfer.
 LOG_SCALARS = ("world_buffer_samples", "collect_reward_mean",
                "imagined_reward_mean", "sac_qf_loss", "sac_policy_loss",
-               "total_steps")
+               "total_steps", "world_resets_run")
 # The fused iteration's device stamps: its start and the ends of its
 # phases.  The record's ``t_dev_<phase>`` is a phase's device time.
 STAMPS = ("start", "collect", "imagine", "policy")
@@ -655,23 +655,27 @@ class PDEModelBasedController:
             self.viz.submit(job)
 
     # -------------------------------------------------------- world rollouts
-    def imagine(self, horizon: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def imagine(self, horizon: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Imagined rollouts in batches of ``model_rollouts_batch_size`` from
-        replay starting states; returns (rewards [rounds*horizon, B], mean).
-        Each round starts from a reset, so the state after its last step is
-        not needed and the world step draws no reset there.  Under a mesh a
-        rank rolls out its share of the batch, and the actions and the
-        replay writes see the whole batch."""
+        replay starting states; returns (rewards [rounds*horizon, B], mean,
+        the auto-resets that ran).  Each round starts from a reset, so the
+        state after its last step is not needed and the world step draws no
+        reset there: ``rounds * (horizon - 1)`` resets are drawn, and one
+        runs (takes its ensemble rollout) where the whole batch is done at
+        its step.  Under a mesh a rank rolls out its share of the batch, and
+        the actions and the replay writes see the whole batch."""
         return self._phase(("world", horizon, self.world_rounds), "imagine",
                            lambda: self._imagine_body(horizon),
                            lambda: tensors_of(self.tr, self.replay, self.world_replay,
                                               self.ensemble, self.sac_state.policy))
 
     @torch.no_grad()
-    def _imagine_body(self, horizon: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _imagine_body(self, horizon: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         tr, world, ens = self.tr, self.world, self.ensemble
         rows = slice(None) if world.rows is None else world.rows
         rewards = []
+        resets_run = torch.zeros((), dtype=torch.int64, device=self.device)
         for _ in range(self.world_rounds):
             wstate = world.reset(self.gen, ens, self.replay, tr)
             obs, t = self._data(wstate.obs, wstate.timesteps)
@@ -690,8 +694,10 @@ class PDEModelBasedController:
                 R.write_step(self.world_replay, prev_obs, action, reward, term,
                              trunc, final_obs, prev_t + 1)
                 rewards.append(reward)
+                if k < horizon - 1:  # the batch's all_done, broadcast
+                    resets_run = resets_run + trunc[0]
         rewards = torch.stack(rewards)
-        return rewards, torch.mean(rewards)
+        return rewards, torch.mean(rewards), resets_run
 
     # --------------------------------------------------------- policy update
     def update_policy(self) -> Dict[str, torch.Tensor]:
@@ -1026,20 +1032,21 @@ class PDEModelBasedController:
         _, collect_rmean = self._collect_body(nsteps, False)
         profiling.stamp(stamps, 1)
         self._fused_phase = "imagine"
-        _, imag_rmean = self._imagine_body(horizon)
+        _, imag_rmean, resets_run = self._imagine_body(horizon)
         profiling.stamp(stamps, 2)
         self._fused_phase = "policy"
         metrics = self._policy_body()
         profiling.stamp(stamps, 3)
         self._fused_phase = "pack"
-        return self._pack_scalars(collect_rmean, imag_rmean, metrics)
+        return self._pack_scalars(collect_rmean, imag_rmean, resets_run, metrics)
 
-    def _pack_scalars(self, collect_rmean, imag_rmean, metrics) -> torch.Tensor:
+    def _pack_scalars(self, collect_rmean, imag_rmean, resets_run, metrics) -> torch.Tensor:
         """The ``LOG_SCALARS`` as one float64 vector, pulled in one copy."""
         return torch.stack([
             self.world_replay.ntimesteps.double(), collect_rmean.double(),
             imag_rmean.double(), metrics["qf_loss"].double(),
             metrics["policy_loss"].double(), self.replay.total_steps.double(),
+            resets_run.double(),
         ])
 
     def _graph_state(self):
@@ -1157,6 +1164,10 @@ class PDEModelBasedController:
             "sac_qf_loss": float(pulled["sac_qf_loss"]),
             "sac_policy_loss": float(pulled["sac_policy_loss"]),
             "env_steps_per_sec": self.throughput.update(int(pulled["total_steps"])),
+            # Every step of a round but its last draws a reset; it ran where
+            # the batch was done (``WorldModel.step``).
+            "world_resets_drawn": self.world_rounds * (rec["horizon"] - 1),
+            "world_resets_run": int(pulled["world_resets_run"]),
         })
         self.logger.log(rec, commit=True)
 
@@ -1255,13 +1266,13 @@ class PDEModelBasedController:
                 )
                 t = lap("t_surrogate", t)
 
-            _, imag_rmean = self.imagine(horizon)
+            _, imag_rmean, resets_run = self.imagine(horizon)
             t = lap("t_imagine", t)
 
             pol_metrics = self.update_policy()
             t = lap("t_policy", t)
 
-            packed = self._pack_scalars(collect_rmean, imag_rmean, pol_metrics)
+            packed = self._pack_scalars(collect_rmean, imag_rmean, resets_run, pol_metrics)
             pulled = dict(zip(LOG_SCALARS, packed.tolist()))
             t = lap("t_pull", t)
             self._warm = True

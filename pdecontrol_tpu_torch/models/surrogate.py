@@ -313,21 +313,25 @@ def ensemble_rollout(
     )
 
 
+def draw_elites(
+    generator: Optional[torch.Generator], ens: EnsembleState, n: int,
+    rows: Optional[slice] = None,
+) -> torch.Tensor:
+    """A random elite member for each of ``n`` batch elements (surrogate.py:44-46),
+    drawn before the outputs they pick from exist.  ``rows``: only those
+    elements' members are kept (a rank's share of the batch)."""
+    members = torch.multinomial(ens.elite_mask.to(torch.float32), n,
+                                replacement=True, generator=generator)
+    return members if rows is None else members[rows]
+
+
 def select_elites(
     generator: Optional[torch.Generator], ens: EnsembleState, outputs: torch.Tensor,
-    rows: Optional[slice] = None, total: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A random elite member per batch element (surrogate.py:44-46).
-    ``outputs`` [M, B, ...] -> gathered [B, ...] plus the member indices.
-    ``outputs`` may hold the ``rows`` of a batch of ``total`` (a rank's
-    share): the members are then drawn for the whole batch, and the rows'
-    kept."""
+    """``outputs`` [M, B, ...] -> each element's output of its elite member
+    (``draw_elites``) [B, ...], plus the member indices."""
     b = outputs.shape[1]
-    members = torch.multinomial(ens.elite_mask.to(torch.float32),
-                                b if total is None else total,
-                                replacement=True, generator=generator)
-    if rows is not None:
-        members = members[rows]
+    members = draw_elites(generator, ens, b)
     return outputs[members, torch.arange(b, device=outputs.device)], members
 
 

@@ -24,7 +24,11 @@ launched back to back (the resolution is printed), and the tracer's offset
 placing a stamp between host reads.  Then the lock-step fit of the members: replayed from its
 graphs it equals the eager fit bit for bit, a capture leaves the state and
 the generator as they were, and a rebound parameter makes a replay raise.
-The group after it
+The world step's auto-reset in a conditional node, for the autoregressive
+and the latent family: one step and the horizon-7 world phase of 10 rounds,
+captured and replayed, equal the eager route bit for bit with the node's
+body skipped and with it run, and the count of resets run reads 0 or 20 of
+the 60 drawn.  The group after it
 holds each surrogate family's rollout and a Burgers control period on the
 card to the same computation on the CPU (rtol 3e-5, atol 3e-6, the float32
 tolerance of tests/test_env_solvers.py).  The last group runs two rank
@@ -496,7 +500,7 @@ def test_fused_body_waits_for_nothing_on_the_host(graphed_and_eager):
         packed = eager._fused_body(key[0], key[1])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert packed.shape == (6,) and bool(torch.isfinite(packed).all())
+    assert packed.shape == (7,) and bool(torch.isfinite(packed).all())
 
 
 def test_graphs_of_two_horizons_share_one_pool(dev, tmp_path):
@@ -843,6 +847,106 @@ def test_phase_replay_after_a_rebound_replay_raises(phase_pair):
         **{k: v.clone() for k, v in vars(graphed.replay).items()})
     with pytest.raises(RuntimeError, match=r"replaying the collect phase \('collect'"):
         graphed.collect(1)
+
+
+# ------------------------------------ the world step's conditional reset
+@pytest.mark.parametrize("done", [False, True], ids=["going", "done"])
+def test_graphed_world_step_equals_the_eager_one(world_pair, done):
+    """One world step captured as a CUDA graph, its auto-reset's rollout in
+    a conditional node on the card's ``all_done``, and replayed from the
+    generator state of an eager step: the returned state (obs, every
+    member's hidden carry, timesteps, steps since reset), the reward, the
+    flags, ``final_obs`` and the generator after equal the eager step's
+    bit for bit, where the batch goes on (the node's body skipped) and
+    where every row is at its time limit (the body run)."""
+    import dataclasses
+
+    from pdecontrol_tpu_torch.utils.graphs import GraphCache, tensors_of
+
+    ctl, _ = world_pair
+    world, ens, tr, gen = ctl.world, ctl.ensemble, ctl.tr, ctl.gen
+    state = world.reset(gen, ens, ctl.replay, tr)
+    start = world.max_episode_steps - 1 if done else 0
+    before = dataclasses.replace(state, timesteps=torch.full_like(state.timesteps, start))
+    action = torch.rand((world.num_envs,) + tuple(ctl.env.action_shape), generator=gen,
+                        device=ctl.device) * 2 - 1
+
+    def step():
+        got, outs = world.step(gen, before, ens, action, tr, 5, ctl.replay)
+        return tensors_of(got) + list(outs)
+
+    drawn = gen.get_state()
+    eager = step()
+    after = gen.get_state()
+    gen.set_state(drawn)
+    graph = GraphCache([gen]).capture("world step", step, [])
+    assert torch.equal(gen.get_state(), drawn)
+    graph.replay([])
+    torch.cuda.synchronize()
+    assert len(graph.output) == len(eager) == 3 + len(state.hidden) + 5
+    for i, (a, b) in enumerate(zip(graph.output, eager)):
+        assert torch.equal(a, b), i
+    assert torch.equal(gen.get_state(), after)
+    assert bool(graph.output[-2].all()) == done  # truncated: the batch's all_done
+    assert int(graph.output[2 + len(state.hidden)]) == (0 if done else 1)  # simulated
+
+
+# The default (autoregressive) family and the latent one, whose world step
+# re-encodes each frame through another cell.
+WORLD_FAMILIES = ("KSAutoRegConvolutionalLSTM", "KSLatentConvolutionalLSTM")
+
+
+@pytest.fixture(params=WORLD_FAMILIES)
+def world_pair(dev, tmp_path, request):
+    """``phase_pair`` of each world family with 10 imagined rounds of 4
+    rows an iteration, as the flagship has 10 rounds of 100, and a world
+    replay long enough for horizon 7 (the schedule's from iteration 1)."""
+    import json
+
+    from pdecontrol_tpu_torch.utils import checkpoint as C
+
+    flags = ("--factory", request.param, "--checkpoint_freq", "0", "--total_timesteps", "10",
+             "--model_rollouts_per_sample", "20", "--model_buffer_max_capacity", "1024",
+             "--rollout_length_schedule",
+             json.dumps({"scheduler": "StepScheduler", "steptype": "iteration",
+                         "steps": [1], "values": [2, 7]}))
+    graphed = _tiny_controller(tmp_path / "graphed", *flags)
+    graphed.learn()
+    eager = _tiny_controller(tmp_path / "eager", *flags, graphs=False)
+    C.load_controller_state(eager, C.to_host(C.controller_state(graphed)))
+    assert graphed.world_rounds == 10 and graphed.world.max_episode_steps == 8
+    yield graphed, eager
+    graphed.logger.finish()
+    eager.logger.finish()
+
+
+@pytest.mark.parametrize("taken", [False, True], ids=["skipped", "taken"])
+def test_graphed_world_phase_equals_the_eager_one(world_pair, taken):
+    """The horizon-7 world phase, 10 rounds, captured (its auto-resets'
+    rollouts in conditional nodes) and replayed twice, against the eager
+    route (every reset computed and picked): with every warmup window at
+    step 0 no row reaches the 8-step limit inside a round and no node's
+    body runs; with every window at step 5 the whole batch reaches it after
+    3 steps, so the bodies at a round's 3rd and 6th steps run in each
+    replay.  The rewards, the world replay's writes (obs, ``final_obs``,
+    flags), the generator, the count of resets run (0 or 20 of the 60
+    drawn) and the SAC updates that follow, with their draws, are equal bit
+    for bit."""
+    graphed, eager = world_pair
+    start = graphed.world.max_episode_steps - 3 if taken else 0
+    for ctl in (graphed, eager):
+        ctl.replay.steps.fill_(start)
+    drawn = graphed.world_rounds * (7 - 1)
+    for i in range(3):
+        outs = [ctl.imagine(7) for ctl in (graphed, eager)]
+        torch.cuda.synchronize()
+        _same(outs[0], outs[1], ("imagine", i))
+        assert (int(outs[0][2]), drawn) == ((20 if taken else 0), 60), i
+    assert graphed.graphs.get(("world", 7, 10)).replays == 2
+    _same_state(graphed, eager, "imagine")
+    outs = [ctl.update_policy() for ctl in (graphed, eager)]
+    _same(outs[0], outs[1], "policy")
+    _same_state(graphed, eager, "policy")
 
 
 def _sac_trainer(tmp_path, graphs):

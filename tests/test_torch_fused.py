@@ -47,6 +47,9 @@ JAX_FUSED_EVAL = (JAX_PIPELINED - {"t_ready"}) | {
 # and the card's wait for the host since the previous replay in one that
 # follows a fused, non-evaluation iteration.
 PORT_STAMPS = {"t_dev_collect", "t_dev_imagine", "t_dev_policy"}
+# The port's count of the world step's auto-resets, drawn and run, in every
+# record.
+PORT_RESETS = {"world_resets_drawn", "world_resets_run"}
 
 
 @pytest.fixture(autouse=True)
@@ -144,14 +147,15 @@ def test_fused_records_carry_the_jax_fields(runs):
     for r in records:
         i = r["iteration"]
         if i % 4 == 0:  # a retrain runs its phases eagerly, as in JAX
-            assert {"t_collect", "t_surrogate", "t_imagine", "t_policy", "t_pull"} <= set(r)
+            assert {"t_collect", "t_surrogate", "t_imagine", "t_policy", "t_pull"} \
+                | PORT_RESETS <= set(r)
             assert not ({"t_dispatch", "t_ready", "t_fused", "t_dev_wait"} | PORT_STAMPS) & set(r)
             continue
         wait = {"t_dev_wait"} if (i - 1) % 4 and (i - 1) % 3 else set()
         if i % 3 == 0:
-            assert set(r) == JAX_FUSED_EVAL | LOGGER | PORT_STAMPS | wait, i
+            assert set(r) == JAX_FUSED_EVAL | LOGGER | PORT_STAMPS | PORT_RESETS | wait, i
         else:
-            assert set(r) == JAX_PIPELINED | LOGGER | PORT_STAMPS | wait, i
+            assert set(r) == JAX_PIPELINED | LOGGER | PORT_STAMPS | PORT_RESETS | wait, i
 
 
 def test_records_are_committed_one_iteration_late(runs):
@@ -316,6 +320,30 @@ def test_world_step_picks_the_reset_on_the_device(runs):
                 assert torch.equal(a, b)
     finally:
         gen.set_state(saved)
+
+
+def test_world_resets_run_counts_the_done_steps(runs):
+    """``world_resets_run`` gains one at a world step where the whole batch
+    is done (every warmup window ends one step short of the time limit, so
+    each step reaches it) and nothing where the batch goes on (every window
+    at step 0); every record counts ``rounds * (horizon - 1)`` resets drawn
+    and no more run."""
+    ctl = runs["fused"][0]
+    horizon = 3
+    state = graphs.tensors_of(ctl.replay, ctl.world_replay)
+    saved, gen = [t.clone() for t in state], ctl.gen.get_state()
+    try:
+        for start, done in ((ctl.world.max_episode_steps - 1, True), (0, False)):
+            ctl.replay.steps.fill_(start)
+            _, _, ran = ctl._imagine_body(horizon)
+            assert ran.dtype == torch.int64
+            assert int(ran) == (ctl.world_rounds * (horizon - 1) if done else 0), start
+    finally:
+        graphs.copy_into(state, saved)
+        ctl.gen.set_state(gen)
+    for r in runs["fused"][1] + runs["eager"][1]:
+        assert r["world_resets_drawn"] == ctl.world_rounds * (r["horizon"] - 1), r
+        assert 0 <= r["world_resets_run"] <= r["world_resets_drawn"], r
 
 
 def test_waterfall_sums_the_fused_fields(runs, tmp_path):

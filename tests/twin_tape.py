@@ -121,8 +121,10 @@ TWINS = {
 }
 # Fields of a record that read the host's clock or its garbage collector.
 WALL_CLOCK = ("start", "time", "_time", "env_steps_per_sec", "gc_max_pause", "n_gc2")
-# The port's counts of the lock-step fit, which the JAX package does not log.
-PORT_ONLY = ("fit_member_steps", "fit_masked_member_steps")
+# The port's counts of the lock-step fit and of the world step's auto-resets,
+# which the JAX package does not log.
+PORT_ONLY = ("fit_member_steps", "fit_masked_member_steps", "world_resets_drawn",
+             "world_resets_run")
 
 
 def shared_fields(record: Dict) -> Dict:
